@@ -1,0 +1,129 @@
+"""Camera model: matrices and primary-ray generation (port of
+strolle_tpu/camera.py).
+
+The matrices are built in numpy exactly as the JAX package builds them,
+``np.linalg.inv`` included, so both packages hold the same bits; only
+the per-pixel ray generation runs on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .ops import math as vm
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    projection_view: torch.Tensor  # f32[4,4]  world -> clip
+    ndc_to_world: torch.Tensor  # f32[4,4]  inverse(projection_view)
+    origin: torch.Tensor  # f32[3]
+    width: int
+    height: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.projection_view.device
+
+
+def perspective_infinite_reverse(fov_y: float, aspect: float, near: float) -> np.ndarray:
+    """Reversed-Z infinite-far RH projection (ndc z = 1 at the near
+    plane, -> 0 at infinity)."""
+    f = 1.0 / np.tan(0.5 * fov_y)
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 3] = near
+    m[3, 2] = -1.0
+    return m
+
+
+def look_at(eye: np.ndarray, target: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """RH view matrix (world -> view)."""
+    eye = np.asarray(eye, np.float32)
+    fwd = np.asarray(target, np.float32) - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, np.asarray(up, np.float32))
+    right = right / np.linalg.norm(right)
+    true_up = np.cross(right, fwd)
+    m = np.eye(4, dtype=np.float32)
+    m[0, :3] = right
+    m[1, :3] = true_up
+    m[2, :3] = -fwd
+    m[:3, 3] = -m[:3, :3] @ eye
+    return m
+
+
+def make_camera(
+    eye,
+    target,
+    up=(0.0, 1.0, 0.0),
+    fov_y: float = np.pi / 4,
+    width: int = 512,
+    height: int = 512,
+    near: float = 0.1,
+    device=None,
+) -> Camera:
+    device = resolve_device(device)
+    proj = perspective_infinite_reverse(fov_y, width / height, near)
+    view = look_at(np.asarray(eye), np.asarray(target), np.asarray(up))
+    pv = (proj @ view).astype(np.float32)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return Camera(
+        projection_view=t(pv),
+        ndc_to_world=t(np.linalg.inv(pv).astype(np.float32)),
+        origin=t(eye),
+        width=int(width),
+        height=int(height),
+    )
+
+
+def _project_point(m: torch.Tensor, x, y, z) -> torch.Tensor:
+    """4x4 matrix (w = 1) applied as unrolled elementwise ops, then the
+    perspective divide; [..., 3]."""
+    out = [m[i, 0] * x + m[i, 1] * y + m[i, 2] * z + m[i, 3] for i in range(4)]
+    return torch.stack(out[:3], dim=-1) / out[3][..., None]
+
+
+def pixel_rays(camera: Camera, pixels_xy: torch.Tensor):
+    """Rays through pixel centres for integer pixel coords [..., 2].
+
+    Returns (origins [..., 3], dirs [..., 3]): unprojects at reversed-Z
+    ndc depths 1.0 (near) and float32 eps (far).
+    """
+    dev = camera.device
+    size = torch.tensor([camera.width, camera.height], dtype=torch.float32, device=dev)
+    sp = pixels_xy.to(torch.float32) + 0.5
+    ndc = sp * 2.0 / size - 1.0
+    ndc = ndc * torch.tensor([1.0, -1.0], dtype=torch.float32, device=dev)
+    m = camera.ndc_to_world
+    x, y = ndc[..., 0], ndc[..., 1]
+    eps = float(np.finfo(np.float32).eps)
+    # m[i, 3] * w with w = 1 is m[i, 3] exactly
+    far = _project_point(m, x, y, torch.full_like(x, eps))
+    near = _project_point(m, x, y, torch.ones_like(x))
+    return near, vm.normalize(far - near)
+
+
+def screen_grid(camera: Camera) -> torch.Tensor:
+    """Integer pixel coordinates [H, W, 2] (x, y order), int32."""
+    dev = camera.device
+    ys, xs = torch.meshgrid(
+        torch.arange(camera.height, dtype=torch.int32, device=dev),
+        torch.arange(camera.width, dtype=torch.int32, device=dev),
+        indexing="ij",
+    )
+    return torch.stack([xs, ys], dim=-1)
+
+
+def cameras_approx_eq(a: Camera, b: Camera) -> torch.Tensor:
+    """Camera equality at the 0.0025 tolerance that drives the
+    reference-mode accumulation reset on movement."""
+    return torch.all(torch.abs(a.projection_view - b.projection_view) <= 0.0025)

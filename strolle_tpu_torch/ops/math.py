@@ -1,0 +1,69 @@
+"""Vector math over trailing-axis-3 tensors (port of strolle_tpu/ops/math.py).
+
+Dot products are written out component by component, left to right, so
+the rounding is the same as the CUDA kernels' ``a.x*b.x + a.y*b.y +
+a.z*b.z``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched dot product over the last axis, keeps no dims."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def dotk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched dot product with the last axis kept (for broadcasting)."""
+    return dot(a, b)[..., None]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        [
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ],
+        dim=-1,
+    )
+
+
+def length(a: torch.Tensor) -> torch.Tensor:
+    """Vector length; 0 for the zero vector (no NaN through sqrt(0))."""
+    n2 = dot(a, a)
+    pos = n2 > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+
+
+def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Safe normalize: the zero vector stays near zero instead of NaN."""
+    return a * torch.rsqrt(torch.clamp(dotk(a, a), min=eps))
+
+
+def saturate(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Reflect incident vector ``i`` about normal ``n`` (GLSL convention)."""
+    return i - 2.0 * dotk(i, n) * n
+
+
+def copysign1(x: torch.Tensor) -> torch.Tensor:
+    """+1.0 where x >= 0 else -1.0 (a sign that is never 0)."""
+    return torch.where(x >= 0.0, 1.0, -1.0)
+
+
+def any_orthonormal_pair(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Branch-free orthonormal basis around unit vector ``n`` (Duff et
+    al., "Building an Orthonormal Basis, Revisited", JCGT 2017)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    t = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
+    bt = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
+    return t, bt
