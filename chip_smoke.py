@@ -5,15 +5,24 @@ Run from the root of the repository:  python3 chip_smoke.py
 1. Prints the card's name and power limit, builds the CUDA kernels from
    strolle_tpu_torch/csrc with one nvcc command.
 2. Holds each kernel against its plain PyTorch version on the card, at
-   the main path's shapes: kernels A and B (brute closest hit / any hit)
+   the main paths' shapes: kernels A and B (brute closest hit / any hit)
    on 800x608 Cornell primary rays and on seeded random rays, kernel C
-   (the reference-mode megakernel) in all four (flat, no_metal) variants.
-3. Drives the main path with every launch count set to 0: trace_sample
-   on Cornell at 800x608 depth 4 and at 256x256 depth 3 (megakernel),
-   render_reference for 8 frames, and the staged loop (kernels A and B),
-   held against the megakernel; then reads the counts.
-4. Times each kernel and its plain version with CUDA events, and the
-   main path in ms/frame and Mrays/s.
+   (the reference-mode megakernel) in all four (flat, no_metal)
+   variants, kernel 4 (the fused surface trace) on primary and random
+   rays of Cornell and of smooth-normal Cornell.
+3. Drives the reference-mode path with every launch count set to 0:
+   trace_sample on Cornell at 800x608 depth 4 and at 256x256 depth 3
+   (megakernel), render_reference for 8 frames, and the staged loop
+   (kernels A and B), held against the megakernel; then reads the counts.
+4. Drives the realtime ReSTIR DI+GI + SVGF frame (render_frame_fused,
+   RenderConfig()) on Cornell at 800x608 for three 6-frame GI cycles,
+   with the counts set to 0 before and read after: kernel 4 and kernel B
+   launch as the GI schedule says, kernel A never; every channel stays
+   finite, and the mean image of frames 6-17 is within 10% of a
+   64-sample reference-mode depth-1 image.
+5. Times each kernel and its plain version with CUDA events, the
+   reference-mode path in ms/frame and Mrays/s, and the realtime frame in
+   ms/frame, per stage, and under the profiler.
 
 Prints a "kernels" JSON line and, last, {"ok": true, "device": ...}.
 Any failed check raises: the script then exits non-zero and prints no
@@ -39,6 +48,11 @@ ENTRY_SIZE, ENTRY_DEPTH = 256, 3  # the call of __graft_entry__.entry()
 FRAMES = 8
 SEED = 7
 DEVICE = "cuda"
+#: The realtime frame: three 6-frame GI cycles; frames 6-17 are held
+#: against a REF_SAMPLES-sample reference-mode depth-1 image.
+RT_FRAMES = 18
+RT_TIMING_CYCLES = 3
+REF_SAMPLES = 64
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 #: tensor cores, and HBM3 bandwidth.
@@ -49,6 +63,11 @@ PEAK_BYTES_PER_S = 3.35e12
 #: in the megakernel, counted from csrc/ref_megakernel.cu with each
 #: sqrt/sin/cos/rsqrt/div as 1: ~190 without the metal lobe, ~420 with.
 FLOPS_MT, FLOPS_BW = 46, 31
+#: Kernel 4's resolve of a hit ray's winner, counted from
+#: csrc/trace_kernels.cu with an fma as 2 and fmax/sqrt/div/compare/cvt
+#: as 1: pvec 9, det 5, sign 1, barycentric w 2, normal 15, |n|^2 5,
+#: fmax + sqrt + div 3, flip 4, uv 10, material id 1. A miss skips it.
+FLOPS_RESOLVE = 55
 FLOPS_SHADE = {False: 420, True: 190}
 
 
@@ -291,6 +310,152 @@ def hold_against_megakernel(staged, mega, what: str) -> None:
     check(dmean < 5e-3, f"{what}: staged mean differs from the megakernel's")
 
 
+def compare_surface_kernel(variants: dict, cam, device) -> float:
+    """Kernel 4 against its plain version on primary and random rays;
+    returns the max abs error of t, u, v, normal, uv on agreeing rays."""
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+    from strolle_tpu_torch.ops.kernels import trace_kernels as tk
+    from strolle_tpu_torch.ops.trace import packed_geom_rows
+
+    po, pd = pixel_rays(cam, screen_grid(cam))
+    ro, rd, _ = random_rays(cam.width * cam.height, device, seed=2)
+    worst = 0.0
+    for sname, scene in variants.items():
+        rows = packed_geom_rows(scene)
+        for rname, (o, d) in {"primary": (po, pd), "random": (ro, rd)}.items():
+            got = tk.trace_surface(rows, o, d)
+            want = tk.trace_surface_plain(rows, o, d)
+            torch.cuda.synchronize()
+            what = f"kernel 4 ({sname}, {rname})"
+            # the same operations in the same order (fmaf where the plain
+            # version emulates a fused multiply-add); allow 1e-5 of rays
+            # for the float64 emulation's double rounding
+            tri, ptri = got["tri"], want["tri"]
+            mism = (tri != ptri).float().mean().item()
+            check(mism <= 1e-5, f"{what}: tri differs on {mism:.2e} of rays")
+            check(bool(torch.isinf(got["t"][tri < 0]).all()), f"{what}: miss with finite t")
+            same = (tri == ptri) & (tri >= 0)
+            check(bool((got["mat_id"][same] == want["mat_id"][same]).all()),
+                  f"{what}: material ids differ")
+            e = max((got[k] - want[k])[same].abs().max().item()
+                    for k in ("t", "u", "v", "normal", "uv"))
+            check(e <= 1e-5, f"{what}: fields differ by {e}")
+            worst = max(worst, e)
+            print(f"{what} vs plain ({o.numel() // 3} rays): tri mismatch "
+                  f"{(tri != ptri).sum().item()}, max err {e:.3g}, hit rate "
+                  f"{(tri >= 0).float().mean().item():.3f}", flush=True)
+    return worst
+
+
+def gi_sampling_frame(f: int) -> bool:
+    """GI sampling (kernel 4's bounce rays and one kernel-B shadow ray)
+    runs on frames 0, 2, 4, 5 of each 6-frame cycle; frames 1 and 3 run
+    the GI spatial pass (two kernel-B reconnection rays) instead."""
+    return not (f % 6 < 4 and f % 2 == 1)
+
+
+def realtime_launches(frames: int) -> dict:
+    """The launches the realtime frame makes over ``frames`` frames from
+    frame 0: kernel 4 once for the primaries and once on GI-sampling
+    frames; kernel B four times for DI (sampling, two spatial
+    cross-visibility rays, resolve) and once or twice for GI."""
+    sampling = sum(gi_sampling_frame(f) for f in range(frames))
+    return {
+        "trace_surface": frames + sampling,
+        "trace_anyhit_brute": 4 * frames + sampling + 2 * (frames - sampling),
+    }
+
+
+def drive_realtime(scene, cam, seed0: int):
+    """RT_FRAMES frames of render_frame_fused from a fresh state; checks
+    every channel of every frame. Returns (mean image of frames 6 on,
+    final state)."""
+    from strolle_tpu_torch.models.restir import init_state, render_frame_fused
+
+    state = init_state(cam, device=cam.device)
+    acc = None
+    for f in range(RT_FRAMES):
+        ch, state = render_frame_fused(scene, cam, state, seed0 + f)
+        for k, v in ch.items():
+            check(bool(torch.isfinite(v).all()), f"realtime frame {f}: {k} not finite")
+        check(tuple(ch["image"].shape) == (cam.height, cam.width, 3), "realtime image shape")
+        if f >= 6:
+            acc = ch["image"] if acc is None else acc + ch["image"]
+    return acc / (RT_FRAMES - 6), state
+
+
+def reference_depth1(scene, cam) -> torch.Tensor:
+    from strolle_tpu_torch.models.reference import trace_sample
+
+    acc = None
+    for s in range(REF_SAMPLES):
+        img = trace_sample(scene, cam, s, depth=1, include_sky=False)
+        acc = img if acc is None else acc + img
+    return acc / REF_SAMPLES
+
+
+def time_realtime(scene, cam, state, seed0: int) -> tuple[float, list, object]:
+    """ms/frame of render_frame_fused: the median over RT_TIMING_CYCLES
+    whole cycles of (cycle time / 6), CUDA events. ``state`` starts at a
+    cycle boundary."""
+    from strolle_tpu_torch.models.restir import render_frame_fused
+
+    check(state.frame % 6 == 0, "timing must start at a GI cycle boundary")
+    per_frame = []
+    for c in range(RT_TIMING_CYCLES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in range(6):
+            _, state = render_frame_fused(scene, cam, state, seed0 + 6 * c + f)
+        end.record()
+        end.synchronize()
+        per_frame.append(start.elapsed_time(end) / 6)
+    return statistics.median(per_frame), per_frame, state
+
+
+def time_stages(scene, cam, state, seed0: int) -> tuple[dict, object]:
+    """Per-frame ms of each stage of render_frame, averaged over one GI
+    cycle: CUDA events between the stage calls of the default config."""
+    from strolle_tpu_torch.models import restir as rt
+    from strolle_tpu_torch.sky.atmosphere import luts_for
+
+    cfg = rt.RenderConfig()
+    luts = luts_for(scene.sun_altitude, cam.device)
+    names = ("prelude", "history", "di", "gi", "denoise_pair", "compose")
+    total = dict.fromkeys(names, 0.0)
+    for f in range(6):
+        seed = seed0 + f
+        frame = state.frame
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        surf, reproj, sky, bn1, bn2 = rt._stage_prelude(
+            scene, cam, state.prev_camera, state.prev_surface, frame, None)
+        ev[1].record()
+        di_rhs, gi_rep, rhs_surf = rt._stage_history(
+            cam, reproj, state.di_prev, state.gi_prev, state.prev_surface)
+        ev[2].record()
+        di_diff, di_spec, di_prev = rt._stage_di(
+            scene, cam, surf, state.prev_surface, reproj, state.di_prev, seed, frame, bn1,
+            sky, cfg.tuning, None, (di_rhs, rhs_surf))
+        ev[3].record()
+        gi_diff, gi_spec, gi_prev = rt._stage_gi(
+            scene, cam, surf, state.prev_surface, reproj, state.gi_prev, seed, frame, bn2,
+            luts, None, cfg.tuning, (gi_rep, rhs_surf))
+        ev[4].record()
+        (di_rgb, di_den), (gi_rgb, gi_den) = rt._stage_denoise_pair(
+            di_diff, gi_diff, surf, reproj, state.di_diff_denoiser, state.gi_diff_denoiser,
+            frame, cfg.tuning)
+        ev[5].record()
+        rt._stage_compose(surf, di_rgb, gi_rgb, di_spec, gi_spec)
+        ev[6].record()
+        ev[6].synchronize()
+        for i, n in enumerate(names):
+            total[n] += ev[i].elapsed_time(ev[i + 1]) / 6
+        state = rt.RenderState(frame + 1, cam, surf, di_prev, gi_prev, di_den, gi_den)
+    return total, state
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -303,8 +468,9 @@ def main() -> int:
         from strolle_tpu_torch.ops.kernels import cuda_lib
         from strolle_tpu_torch.ops.kernels import ref_kernel as rk
         from strolle_tpu_torch.ops.kernels import trace_kernels as tk
-        from strolle_tpu_torch.ops.trace import packed_tri_rows
+        from strolle_tpu_torch.ops.trace import packed_geom_rows, packed_tri_rows
         from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+        from strolle_tpu_torch.sky.atmosphere import luts_for
     except ImportError as e:
         print(f"chip_smoke: strolle_tpu_torch not found beside this script ({e})",
               file=sys.stderr)
@@ -346,8 +512,10 @@ def main() -> int:
         "the four megakernel variants are not all covered",
     )
     err["C"] = compare_megakernel(variants, cam, device)
+    err["4"] = compare_surface_kernel(
+        {"cornell": scene, "perturbed_normals": variants["perturbed_normals"]}, cam, device)
 
-    # --- 3. the main path, counted --------------------------------------
+    # --- 3. the reference-mode path, counted ------------------------------
     entry_cam = cornell_camera(ENTRY_SIZE, ENTRY_SIZE, device=device)
     cuda_lib.reset_launch_counts()
     img = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False)
@@ -359,7 +527,7 @@ def main() -> int:
                           use_megakernel=False)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    print(f"main path launches: {launches}", flush=True)
+    print(f"reference-mode path launches: {launches}", flush=True)
     for k in ("trace_sample_megakernel", "trace_closest_brute", "trace_anyhit_brute"):
         check(launches.get(k, 0) > 0, f"main path never launched {k}")
     check(launches["trace_sample_megakernel"] == 2 + FRAMES, "megakernel launch count")
@@ -377,7 +545,29 @@ def main() -> int:
     # the 8-frame average is a smoother estimate of the same image
     check(abs(avg.mean().item() - img.mean().item()) < 0.02, "accumulated mean drifted")
 
-    # --- 4. timings -----------------------------------------------------
+    # --- 4. the realtime frame, counted -------------------------------------
+    luts_for(scene.sun_altitude, device)  # the LUTs are made once, like the kernels
+    cuda_lib.reset_launch_counts()
+    rt_mean, rt_state = drive_realtime(scene, cam, 1000)
+    torch.cuda.synchronize()
+    rt_launches = dict(cuda_lib.LAUNCHES)
+    print(f"realtime path launches ({RT_FRAMES} frames): {rt_launches}", flush=True)
+    want = realtime_launches(RT_FRAMES)
+    check(rt_launches.get("trace_surface", 0) == want["trace_surface"],
+          f"kernel 4 launches {rt_launches.get('trace_surface')} != {want['trace_surface']}")
+    check(rt_launches.get("trace_anyhit_brute", 0) == want["trace_anyhit_brute"],
+          f"kernel B launches {rt_launches.get('trace_anyhit_brute')} != "
+          f"{want['trace_anyhit_brute']}")
+    check(rt_launches.get("trace_closest_brute", 0) == 0, "kernel A ran in the realtime frame")
+    check(rt_launches.get("trace_sample_megakernel", 0) == 0, "kernel C ran in the realtime frame")
+    ref1 = reference_depth1(scene, cam)
+    rel = abs(rt_mean.mean().item() - ref1.mean().item()) / ref1.mean().item()
+    print(f"realtime mean image (frames 6-{RT_FRAMES - 1}) {rt_mean.mean().item():.5f} vs "
+          f"{REF_SAMPLES}-sample reference depth 1 {ref1.mean().item():.5f}: "
+          f"relative difference {rel:.4f}", flush=True)
+    check(rel < 0.10, f"realtime mean off the reference by {rel:.3f}")
+
+    # --- 5. timings -----------------------------------------------------
     rays = WIDTH * HEIGHT * (DEPTH + 1) * 2
     ms_mega = time_ms(lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False))
     ms_staged = time_ms(
@@ -420,8 +610,35 @@ def main() -> int:
     bound_b, by_b = bound(anyhit_tests(rows, so, sd, slen) * FLOPS_MT,
                           4 * rows.numel() + r * 28 + r)
 
+    # kernel 4 alone on the realtime frame's primary rays
+    grows = packed_geom_rows(scene)
+    ms_4 = time_ms(lambda: tk.trace_surface(grows, po, pd))
+    plain_4 = time_ms(lambda: tk.trace_surface_plain(grows, po, pd), warmup=1, iters=5)
+    hits_4 = int((tk.trace_surface_plain(grows, po, pd)["tri"] >= 0).sum())
+    # out: t, u, v, tri, normal [3], uv [2], mat_id = 40 B per ray
+    bound_4, by_4 = bound(r * grows.shape[0] * FLOPS_MT + hits_4 * FLOPS_RESOLVE,
+                          4 * grows.numel() + r * 24 + r * 40)
+
+    # the realtime frame: whole cycles, per stage, under the profiler
+    rt_ms, rt_cycles, rt_state = time_realtime(scene, cam, rt_state, 2000)
+    rt_stages, rt_state = time_stages(scene, cam, rt_state, 3000)
+    from strolle_tpu_torch.models.restir import render_frame_fused
+
+    holder = {"state": rt_state, "seed": 4000}
+
+    def rt_frame():
+        _, holder["state"] = render_frame_fused(scene, cam, holder["state"], holder["seed"])
+        holder["seed"] += 1
+
+    rt_profile = profile_frames(rt_frame, frames=6)
+
     timings = {
         "card": card,
+        "realtime_ms_per_frame": rt_ms,
+        "realtime_cycle_ms_per_frame": rt_cycles,
+        "realtime_stage_ms_per_frame": rt_stages,
+        "profile_realtime": rt_profile,
+        "realtime_mean_vs_reference": rel,
         "mega_ms_per_frame": ms_mega,
         "mega_mrays_per_s": rays / (ms_mega * 1e-3) / 1e6,
         "staged_ms_per_frame": ms_staged,
@@ -460,11 +677,19 @@ def main() -> int:
             "name": "trace_anyhit_brute", "route": "cuda",
             "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
             "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:378",
-            "launches": launches["trace_anyhit_brute"],
+            "launches": launches["trace_anyhit_brute"] + rt_launches["trace_anyhit_brute"],
             "max_abs_err": err["B"], "ms": ms_b, "plain_ms": plain_b,
             "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
         },
     ]
+    kernels.append({
+        "name": "trace_surface", "route": "cuda",
+        "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
+        "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:328",
+        "launches": rt_launches["trace_surface"],
+        "max_abs_err": err["4"], "ms": ms_4, "plain_ms": plain_4,
+        "bound_ms": bound_4, "bound_by": by_4, "library_ms": None,
+    })
     for k in kernels:
         check(all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")),
               f"{k['name']}: non-finite timing")

@@ -98,18 +98,55 @@ def pixel_rays(camera: Camera, pixels_xy: torch.Tensor):
     Returns (origins [..., 3], dirs [..., 3]): unprojects at reversed-Z
     ndc depths 1.0 (near) and float32 eps (far).
     """
-    dev = camera.device
-    size = torch.tensor([camera.width, camera.height], dtype=torch.float32, device=dev)
     sp = pixels_xy.to(torch.float32) + 0.5
-    ndc = sp * 2.0 / size - 1.0
-    ndc = ndc * torch.tensor([1.0, -1.0], dtype=torch.float32, device=dev)
+    # (sp * 2 / size - 1) * (1, -1) per axis, dividing tensor by tensor
+    # (a scalar divisor may become a reciprocal multiply); the sizes are
+    # filled on the device rather than copied there
+    sx, sy = sp[..., 0] * 2.0, sp[..., 1] * 2.0
+    x = sx / torch.full_like(sx, float(camera.width)) - 1.0
+    y = -(sy / torch.full_like(sy, float(camera.height)) - 1.0)
     m = camera.ndc_to_world
-    x, y = ndc[..., 0], ndc[..., 1]
     eps = float(np.finfo(np.float32).eps)
     # m[i, 3] * w with w = 1 is m[i, 3] exactly
     far = _project_point(m, x, y, torch.full_like(x, eps))
     near = _project_point(m, x, y, torch.ones_like(x))
     return near, vm.normalize(far - near)
+
+
+def world_to_screen_xy(camera: Camera, pos: torch.Tensor):
+    """World point -> screen pixel coords as separate (x, y) planes."""
+    m = camera.projection_view
+    x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+    cx = m[0, 0] * x + m[0, 1] * y + m[0, 2] * z + m[0, 3]
+    cy = m[1, 0] * x + m[1, 1] * y + m[1, 2] * z + m[1, 3]
+    cw = m[3, 0] * x + m[3, 1] * y + m[3, 2] * z + m[3, 3]
+    ndc_x = cx / cw
+    ndc_y = -(cy / cw)
+    sx = (0.5 * ndc_x + 0.5) * camera.width
+    sy = (0.5 * ndc_y + 0.5) * camera.height
+    return sx, sy
+
+
+def screen_xy(camera: Camera):
+    """Integer pixel coordinates as two [H, W] int32 planes (x, y)."""
+    g = screen_grid(camera)
+    return g[..., 0], g[..., 1]
+
+
+def contain_xy(camera: Camera, x: torch.Tensor, y: torch.Tensor):
+    """Mirror out-of-bounds integer coords back inside: -k -> k at the
+    low edge, n + k -> n - 1 - k at the high edge."""
+    w, h = camera.width, camera.height
+    x = torch.where(x < 0, -x, x)
+    y = torch.where(y < 0, -y, y)
+    x = torch.where(x >= w, 2 * w - x - 1, x)
+    y = torch.where(y >= h, 2 * h - y - 1, y)
+    return x, y
+
+
+def contain(camera: Camera, pos_xy: torch.Tensor) -> torch.Tensor:
+    x, y = contain_xy(camera, pos_xy[..., 0], pos_xy[..., 1])
+    return torch.stack([x, y], dim=-1)
 
 
 def screen_grid(camera: Camera) -> torch.Tensor:

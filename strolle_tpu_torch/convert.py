@@ -1,9 +1,14 @@
 """Carry-over between the JAX package's data and the port's.
 
-The JAX package's Scene, Camera and RefAccumulator travel as nested
-dicts of numpy arrays (field name -> array, or a dict for a nested
-dataclass), so this module never imports JAX. ``*_to_arrays`` go the
-other way, for round trips.
+The JAX package's Scene, Camera, RefAccumulator, the realtime frame's
+RenderState (with its reservoirs, denoiser states, previous Surface and
+Camera) and AtmosphereLuts travel as nested dicts of numpy arrays
+(field name -> array, or a dict for a nested dataclass), so this module
+never imports JAX. ``*_to_arrays`` go the other way, for round trips.
+
+Dtypes: float32 and int32 stay; bool stays; the JAX package's uint32
+RNG states become int64 tensors holding the same value (the port's u32
+convention, ops/rng.py) and go back as uint32.
 """
 
 from __future__ import annotations
@@ -14,9 +19,15 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .denoise.svgf import DenoiserState
 from .device import resolve_device
 from .models.reference import RefAccumulator
+from .models.restir import RenderState
+from .ops.hit import Surface
+from .restir.gi import GiReservoirs
+from .restir.reservoir import DiReservoirs
 from .scene.types import Geometry, Lights, Materials, Scene
+from .sky.atmosphere import AtmosphereLuts
 
 _INT_FIELDS = {"material_id", "alpha_blend", "kind", "prev_kind", "remap", "killed"}
 
@@ -117,3 +128,74 @@ def accumulator_from_arrays(arrays: dict, device=None) -> RefAccumulator:
 
 def accumulator_to_arrays(accum: RefAccumulator) -> dict:
     return _numpy(accum)
+
+
+def tensor_from_array(a, device) -> torch.Tensor:
+    """One array as a tensor: uint32 -> int64 of the same value, other
+    dtypes kept."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.tensor(a, device=device)
+
+
+def array_from_tensor(t: torch.Tensor, u32: bool = False) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.astype(np.uint32) if u32 else a
+
+
+def dataclass_from_arrays(cls, arrays: dict, device=None):
+    """A dataclass of tensors (Surface, Reprojection, reservoirs,
+    DenoiserState, AtmosphereLuts) from a dict of its fields' arrays."""
+    device = resolve_device(device)
+    return cls(**{
+        f.name: tensor_from_array(arrays[f.name], device) for f in dataclasses.fields(cls)
+    })
+
+
+def dataclass_to_arrays(obj, u32_fields=()) -> dict:
+    return {
+        f.name: array_from_tensor(getattr(obj, f.name), f.name in u32_fields)
+        for f in dataclasses.fields(obj)
+    }
+
+
+def render_state_from_arrays(arrays: dict, device=None) -> RenderState:
+    """The port's RenderState from a JAX RenderState's fields (each
+    nested dataclass a dict; ``frame`` a scalar)."""
+    device = resolve_device(device)
+    return RenderState(
+        frame=int(np.asarray(arrays["frame"])),
+        prev_camera=camera_from_arrays(arrays["prev_camera"], device),
+        prev_surface=dataclass_from_arrays(Surface, arrays["prev_surface"], device),
+        di_prev=dataclass_from_arrays(DiReservoirs, arrays["di_prev"], device),
+        gi_prev=dataclass_from_arrays(GiReservoirs, arrays["gi_prev"], device),
+        di_diff_denoiser=dataclass_from_arrays(DenoiserState, arrays["di_diff_denoiser"], device),
+        gi_diff_denoiser=dataclass_from_arrays(DenoiserState, arrays["gi_diff_denoiser"], device),
+    )
+
+
+def render_state_to_arrays(state: RenderState) -> dict:
+    """The inverse of ``render_state_from_arrays``: the JAX package's
+    dtypes (``frame`` int32, GI RNG states uint32)."""
+    cam = state.prev_camera
+    return {
+        "frame": np.int32(state.frame),
+        "prev_camera": {
+            "projection_view": array_from_tensor(cam.projection_view),
+            "ndc_to_world": array_from_tensor(cam.ndc_to_world),
+            "origin": array_from_tensor(cam.origin),
+            "width": cam.width,
+            "height": cam.height,
+        },
+        "prev_surface": dataclass_to_arrays(state.prev_surface),
+        "di_prev": dataclass_to_arrays(state.di_prev),
+        "gi_prev": dataclass_to_arrays(state.gi_prev, u32_fields=("rng",)),
+        "di_diff_denoiser": dataclass_to_arrays(state.di_diff_denoiser),
+        "gi_diff_denoiser": dataclass_to_arrays(state.gi_diff_denoiser),
+    }
+
+
+def luts_from_arrays(arrays: dict, device=None) -> AtmosphereLuts:
+    """The port's AtmosphereLuts from a JAX AtmosphereLuts' fields."""
+    return dataclass_from_arrays(AtmosphereLuts, arrays, device)

@@ -50,6 +50,23 @@ class Surface:
     depth: torch.Tensor  # f32[...]  (hit distance; 0 on miss)
     is_some: torch.Tensor  # bool[...]
 
+    def replace(self, **updates) -> "Surface":
+        return dataclasses.replace(self, **updates)
+
+    @staticmethod
+    def empty(shape, device) -> "Surface":
+        """A miss everywhere: zeros, tri = -1."""
+        def z(*tail, dtype=torch.float32):
+            return torch.zeros(tuple(shape) + tail, dtype=dtype, device=device)
+
+        return Surface(
+            point=z(3), dir=z(3), normal=z(3), uv=z(2),
+            tri=torch.full(tuple(shape), -1, dtype=torch.int32, device=device),
+            material_id=z(dtype=torch.int32), base_color=z(4), emissive=z(3),
+            metallic=z(), roughness=z(), reflectance=z(), depth=z(),
+            is_some=z(dtype=torch.bool),
+        )
+
 
 def surface_at(
     scene: Scene,

@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from . import math as vm
+
 F32_EPS = 1.1920929e-07
 
 
@@ -74,3 +76,17 @@ def ray_triangle_edges(o, d, v0, e1, e2):
         & (t > 0.0)
     )
     return torch.where(valid, t, math.inf), u, v, det
+
+
+def ray_sphere(o, d, center, radius):
+    """Smallest positive t of the ray against a sphere, or +inf."""
+    oc = o - center
+    b = vm.dot(oc, d)
+    c = vm.dot(oc, oc) - radius * radius
+    disc = b * b - c
+    pos = disc > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    t0 = -b - sq
+    t1 = -b + sq
+    t = torch.where(t0 > 0.0, t0, t1)
+    return torch.where((disc >= 0.0) & (t > 0.0), t, math.inf)

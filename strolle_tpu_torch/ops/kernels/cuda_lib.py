@@ -53,6 +53,8 @@ _SIGNATURES = {
     "strolle_trace_closest_brute": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
     # rows, n_rows, o, d, t_max, n_rays, occluded, stream
     "strolle_trace_anyhit_brute": [_P, _I, _P, _P, _P, _I, _P, _P],
+    # rows, n_rows, o, d, n_rays, t, tri, u, v, normal, uv, mat, stream
+    "strolle_trace_surface": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # tris, n_tris, mats, n_mats, lights, n_lights, lcount, o, d, state0,
     # n_rays, depth, flat, no_metal, out, stream
     "strolle_trace_sample_megakernel": [

@@ -1,11 +1,12 @@
-"""Brute-force closest-hit and any-hit kernels (port of
-strolle_tpu/ops/pallas/trace_kernels.py: ``trace_closest_brute_pallas``
-and ``trace_anyhit_brute_pallas``).
+"""Brute-force closest-hit, any-hit and surface kernels (port of
+strolle_tpu/ops/pallas/trace_kernels.py: ``trace_closest_brute_pallas``,
+``trace_anyhit_brute_pallas`` and ``trace_surface_pallas``).
 
-Triangles are packed [T, 12] rows: v0(3), e1(3), e2(3), pad(3). The
-CUDA kernels are in ``csrc/trace_kernels.cu``; each wrapper below runs
-its plain PyTorch version for CPU tensors and launches the kernel for
-CUDA tensors.
+Triangles are packed [T, 12] rows: v0(3), e1(3), e2(3), pad(3) for the
+closest- and any-hit kernels, and [T, 28] rows (``pack_geometry``) for
+the surface kernel. The CUDA kernels are in ``csrc/trace_kernels.cu``;
+each wrapper below runs its plain PyTorch version for CPU tensors and
+launches the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-from ..intersect import ray_triangle_edges
+from ..intersect import fma_cross, fma_dot, ray_triangle_edges
 from . import cuda_lib
 
 #: Most triangles the brute-force kernels take (and the most the JAX
@@ -31,6 +32,21 @@ def pack_triangles(positions: torch.Tensor) -> torch.Tensor:
     e2 = positions[:, 2] - v0
     pad = torch.zeros_like(v0)
     return torch.cat([v0, e1, e2, pad], dim=-1)
+
+
+def pack_geometry(geom) -> torch.Tensor:
+    """Geometry -> [T, 28] rows for the surface kernel: v0(3) e1(3) e2(3)
+    n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) material id(1) pad(3)."""
+    p = geom.positions
+    v0 = p[:, 0]
+    cols = [
+        v0, p[:, 1] - v0, p[:, 2] - v0,
+        geom.normals[:, 0], geom.normals[:, 1], geom.normals[:, 2],
+        geom.uvs[:, 0], geom.uvs[:, 1], geom.uvs[:, 2],
+        geom.material_id.to(torch.float32)[:, None],
+        torch.zeros((p.shape[0], 3), dtype=torch.float32, device=p.device),
+    ]
+    return torch.cat(cols, dim=-1)
 
 
 def _row_isect(rows: torch.Tensor, of: torch.Tensor, df: torch.Tensor):
@@ -76,9 +92,36 @@ def trace_anyhit_brute_plain(rows, o, d, t_max, chunk: int = PLAIN_CHUNK):
     return occ.reshape(batch)
 
 
-def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
-    if rows.ndim != 2 or rows.shape[1] != 12:
-        raise ValueError(f"{name}: rows must be [T, 12], got {tuple(rows.shape)}")
+def trace_surface_plain(rows, o, d, chunk: int = PLAIN_CHUNK) -> dict:
+    """Plain version of kernel 4: kernel A's closest hit over the [T, 28]
+    rows, then the winner's interpolated normal (flipped by the sign of
+    the Möller-Trumbore determinant, normalised with
+    rsqrt(max(|n|^2, 1e-20))), uv and material id, in the TPU kernel's
+    operation order. A miss gives t = +inf, tri = -1 and zeros."""
+    t, tri, u, v = trace_closest_brute_plain(rows[:, :12], o, d, chunk)
+    r = rows[torch.clamp(tri, min=0).long()]  # [..., 28]
+    some = (tri >= 0)[..., None]
+    det = fma_dot(r[..., 3:6], fma_cross(d, r[..., 6:9]))
+    dsign = torch.where(det >= 0.0, 1.0, -1.0)[..., None]
+    bu = u[..., None]
+    bv = v[..., None]
+    w = 1.0 - bu - bv
+    n = w * r[..., 9:12] + bu * r[..., 12:15] + bv * r[..., 15:18]
+    n2 = n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2]
+    flip = dsign * torch.rsqrt(torch.clamp(n2, min=1e-20))[..., None]
+    uv = w * r[..., 18:20] + bu * r[..., 20:22] + bv * r[..., 22:24]
+    return {
+        "t": t, "tri": tri, "u": u, "v": v,
+        "normal": torch.where(some, n * flip, 0.0),
+        "uv": torch.where(some, uv, 0.0),
+        "mat_id": torch.where(some[..., 0], r[..., 24].to(torch.int32), 0),
+    }
+
+
+def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                  width: int = 12):
+    if rows.ndim != 2 or rows.shape[1] != width:
+        raise ValueError(f"{name}: rows must be [T, {width}], got {tuple(rows.shape)}")
     if rows.shape[0] > MAX_TRIS:
         raise NotImplementedError(
             f"{name}: {rows.shape[0]} triangles > {MAX_TRIS}; big scenes take "
@@ -146,3 +189,37 @@ def trace_anyhit_brute(rows, o, d, t_max):
     cuda_lib.check("trace_anyhit_brute", err)
     cuda_lib.count_launch("trace_anyhit_brute")
     return occ
+
+
+def trace_surface(rows, o, d) -> dict:
+    """Closest hit of rays o/d [..., 3] against [T, 28] pack_geometry
+    rows, with the winner's attributes resolved: a dict of t, tri, u, v,
+    normal [..., 3], uv [..., 2] and mat_id over o's batch shape. CPU
+    tensors run the plain version; CUDA tensors launch kernel 4."""
+    _check_inputs("trace_surface", rows, o, d, width=28)
+    if rows.device.type == "cpu":
+        return trace_surface_plain(rows, o, d)
+    cuda_lib.check_tensors("trace_surface", rows, o, d)
+    lib = cuda_lib.library()
+    batch = o.shape[:-1]
+    n = o.numel() // 3
+    dev = o.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(batch + shape, dtype=dtype, device=dev)
+
+    out = {
+        "t": empty(), "tri": empty(dtype=torch.int32), "u": empty(), "v": empty(),
+        "normal": empty(3), "uv": empty(2), "mat_id": empty(dtype=torch.int32),
+    }
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.strolle_trace_surface(
+            rows.data_ptr(), rows.shape[0], o.data_ptr(), d.data_ptr(), n,
+            *(out[k].data_ptr() for k in ("t", "tri", "u", "v", "normal", "uv", "mat_id")),
+            cuda_lib.stream(dev),
+        )
+    cuda_lib.check("trace_surface", err)
+    cuda_lib.count_launch("trace_surface")
+    return out

@@ -4,6 +4,7 @@ a one-hot matmul; here it is plain indexing of the same [L, 13] table."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -28,21 +29,27 @@ class LightGather(NamedTuple):
 RANGE_UNLIMITED = 1e30
 
 
-def pack_lights(lights: Lights) -> torch.Tensor:
+def pack_lights(lights: Lights, prev: bool = False) -> torch.Tensor:
     """[L, 13] rows: pos(3) radius color(3) range kind spot_dir(3)
     spot_angle, clamped to RANGE_UNLIMITED (also the megakernel's light
-    rows)."""
-    cols = [
-        lights.pos, lights.radius[:, None], lights.color,
-        lights.range[:, None], lights.kind.to(torch.float32)[:, None],
-        lights.spot_dir, lights.spot_angle[:, None],
-    ]
+    rows). ``prev`` packs the previous frame's copies."""
+    if prev:
+        cols = [
+            lights.prev_pos, lights.prev_radius[:, None], lights.prev_color,
+            lights.prev_range[:, None], lights.prev_kind.to(torch.float32)[:, None],
+            lights.prev_spot_dir, lights.prev_spot_angle[:, None],
+        ]
+    else:
+        cols = [
+            lights.pos, lights.radius[:, None], lights.color,
+            lights.range[:, None], lights.kind.to(torch.float32)[:, None],
+            lights.spot_dir, lights.spot_angle[:, None],
+        ]
     return torch.clamp(torch.cat(cols, dim=-1), max=RANGE_UNLIMITED)
 
 
-def gather_light(lights: Lights, light_id: torch.Tensor) -> LightGather:
-    i = torch.clamp(light_id, 0, lights.capacity - 1).long()
-    rows = pack_lights(lights)[i]
+def light_gather_of(rows: torch.Tensor) -> LightGather:
+    """A LightGather over packed rows [..., 13]."""
     return LightGather(
         pos=rows[..., 0:3],
         radius=rows[..., 3],
@@ -52,6 +59,11 @@ def gather_light(lights: Lights, light_id: torch.Tensor) -> LightGather:
         spot_dir=rows[..., 9:12],
         spot_angle=rows[..., 12],
     )
+
+
+def gather_light(lights: Lights, light_id: torch.Tensor, prev: bool = False) -> LightGather:
+    i = torch.clamp(torch.as_tensor(light_id), 0, lights.capacity - 1).long()
+    return light_gather_of(pack_lights(lights, prev)[i])
 
 
 class LightRadiance(NamedTuple):
@@ -124,3 +136,22 @@ def shadow_ray_wnoise(state, light: LightGather, hit_point):
     light_pos = light.pos + light.radius[..., None] * sph
     to_hit = hit_point - light_pos
     return state, light_pos, vm.normalize(to_hit), vm.length(to_hit)
+
+
+def shadow_ray_bnoise(sample2, light: LightGather, hit_point):
+    """Blue-noise disk sample toward the light; returns (origin, dir,
+    length) with the light -> hit orientation of the reference."""
+    to_light = light.pos - hit_point
+    dist = vm.length(to_light)
+    ldir = to_light / torch.clamp(dist, min=1e-20)[..., None]
+    lrad = light.radius / torch.clamp(dist, min=1e-20)
+    tangent, bitangent = vm.any_orthonormal_pair(ldir)
+
+    angle = 2.0 * math.pi * sample2[..., 0]
+    radius = torch.sqrt(torch.clamp(sample2[..., 1], min=0.0))
+    dx = torch.sin(angle) * radius * lrad
+    dy = torch.cos(angle) * radius * lrad
+
+    ray_dir = vm.normalize(ldir + dx[..., None] * tangent + dy[..., None] * bitangent)
+    origin = hit_point + ray_dir * dist[..., None]
+    return origin, -ray_dir, dist

@@ -67,3 +67,42 @@ def any_orthonormal_pair(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     t = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
     bt = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
     return t, bt
+
+
+def sqr(x: torch.Tensor) -> torch.Tensor:
+    return x * x
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
+def luma(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 relative luminance."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+
+
+def perc_luma(rgb: torch.Tensor) -> torch.Tensor:
+    """Perceptual luminance, sqrt(luma); 0 for black."""
+    lum = luma(rgb)
+    pos = lum > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, lum, 1.0)), 0.0)
+
+
+def octahedral_encode(n: torch.Tensor) -> torch.Tensor:
+    """Unit vector [..., 3] -> octahedral [..., 2] in [-1, 1]."""
+    s = torch.sum(torch.abs(n), dim=-1, keepdim=True)
+    v = n / torch.clamp(s, min=1e-20)
+    xy = v[..., :2]
+    flipped = (1.0 - torch.abs(xy.flip(-1))) * torch.where(xy >= 0.0, 1.0, -1.0)
+    return torch.where(v[..., 2:3] >= 0.0, xy, flipped)
+
+
+def octahedral_decode(e: torch.Tensor) -> torch.Tensor:
+    """Octahedral [..., 2] -> unit vector [..., 3]."""
+    x, y = e[..., 0], e[..., 1]
+    z = 1.0 - torch.abs(x) - torch.abs(y)
+    t = torch.clamp(-z, min=0.0)
+    x = x - torch.where(x >= 0.0, t, -t)
+    y = y - torch.where(y >= 0.0, t, -t)
+    return normalize(torch.stack([x, y, z], dim=-1))

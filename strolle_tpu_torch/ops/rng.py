@@ -40,6 +40,21 @@ def next_f32(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return state, word.to(torch.float32) / _MAX_U32_F
 
 
+def sample_circle(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uniform point on the unit circle [..., 2]."""
+    state, u = next_f32(state)
+    angle = u * (2.0 * math.pi)
+    return state, torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+
+
+def sample_disk(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uniform point inside the unit disk [..., 2]."""
+    state, u = next_f32(state)
+    radius = torch.sqrt(u)
+    state, circ = sample_circle(state)
+    return state, circ * radius[..., None]
+
+
 def sample_sphere(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Point on/in the unit sphere with the sqrt(u) radial factor;
     cos(acos(2u-1)) and sin(acos(x)) evaluated algebraically."""

@@ -15,7 +15,7 @@ import math
 import torch
 
 from ..scene.types import Scene
-from .hit import Surface, TriangleHit, surface_at
+from .hit import NUDGE_OFFSET, Surface, TriangleHit, surface_at
 from .intersect import ray_triangle
 from .kernels import trace_kernels as tk
 
@@ -42,6 +42,15 @@ def packed_tri_rows(scene: Scene) -> torch.Tensor:
     pad = (-rows.shape[0]) % 8
     if pad:
         rows = torch.cat([rows, rows.new_zeros((pad, 12))])
+    return rows.contiguous()
+
+
+def packed_geom_rows(scene: Scene) -> torch.Tensor:
+    """[T', 28] surface-kernel rows, zero-padded to a multiple of 8."""
+    rows = tk.pack_geometry(scene.geometry)
+    pad = (-rows.shape[0]) % 8
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, 28))])
     return rows.contiguous()
 
 
@@ -102,13 +111,51 @@ def trace_surface(
     regularize: bool = False,
     use_pallas: bool | None = None,
 ) -> Surface:
-    """Closest hit + shading attributes (the ``use_pallas=False`` branch
-    of the JAX package: trace_closest, then surface_at). The fused
-    surface kernel of the JAX package is ported in slice 2, so
-    ``use_pallas=True`` raises; ``None`` means False here."""
-    if use_pallas:
-        raise NotImplementedError(
-            "the fused surface kernel (trace_surface_pallas) is ported in slice 2"
-        )
-    hit = trace_closest(scene, o, d)
-    return surface_at(scene, o, d, hit, regularize=regularize)
+    """Closest hit + shading attributes as a Surface.
+
+    ``use_pallas`` keeps the JAX package's meaning: ``None`` (the
+    default) and ``True`` take the fused surface kernel (kernel 4: CUDA
+    on the card, its plain version on CPU tensors), which resolves the
+    winner's normal, uv and material id itself; ``False`` takes
+    trace_closest + surface_at, whose t/u/v are recomputed through the
+    winner with tensor ops so that gradients flow (the differentiable
+    path). ``regularize`` clamps roughness for indirect bounces."""
+    check_scene_supported(scene)
+    if use_pallas is False:
+        hit = trace_closest(scene, o, d)
+        return surface_at(scene, o, d, hit, regularize=regularize)
+
+    out = tk.trace_surface(
+        packed_geom_rows(scene).detach(),
+        o.detach().contiguous(),
+        d.detach().contiguous(),
+    )
+    some = out["tri"] >= 0
+    t = torch.where(some, out["t"], 0.0)
+    normal = out["normal"]
+    mat_id = torch.where(some, out["mat_id"], 0)
+    mid = mat_id.long()
+    mats = scene.materials
+    roughness = mats.roughness[mid]
+    if regularize:
+        roughness = torch.clamp(roughness, min=0.75 * 0.75)
+    point = o + d * t[..., None] + normal * NUDGE_OFFSET
+
+    def z(x):
+        return torch.where(some[..., None] if x.ndim > some.ndim else some, x, 0.0)
+
+    return Surface(
+        point=z(point),
+        dir=d,
+        normal=z(normal),
+        uv=z(out["uv"]),
+        tri=torch.where(some, out["tri"], -1),
+        material_id=mat_id,
+        base_color=z(mats.base_color[mid]),
+        emissive=z(mats.emissive[mid][..., :3]),
+        metallic=z(mats.metallic[mid]),
+        roughness=z(roughness),
+        reflectance=z(mats.reflectance[mid]),
+        depth=t,
+        is_some=some,
+    )

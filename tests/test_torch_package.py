@@ -7,10 +7,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 
 from strolle_tpu_torch.camera import make_camera
 from strolle_tpu_torch.models.reference import trace_sample
+from strolle_tpu_torch.models.restir import init_state
 from strolle_tpu_torch.ops.kernels import ref_kernel, trace_kernels
+from strolle_tpu_torch.ops.trace import trace_surface
 from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
 from strolle_tpu_torch.scene.types import make_lights, make_materials
 
@@ -45,6 +48,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
         lambda: make_camera([0, 0, 1], [0, 0, 0]),
         lambda: make_materials([{}]),
         lambda: make_lights([{}]),
+        lambda: init_state(cornell_camera(8, 8, device="cpu")),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -62,6 +66,10 @@ def test_unported_paths_raise():
     o = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="1024"):
         trace_kernels.trace_closest_brute(torch.zeros(1032, 12), o, o)
+    for use_pallas in (None, True, False):
+        for bad in (scene.replace(has_alpha=True), scene.replace(atlas=torch.zeros(4, 4, 4))):
+            with pytest.raises(NotImplementedError):
+                trace_surface(bad, o, o, use_pallas=use_pallas)
     with pytest.raises(NotImplementedError, match="1024"):
         ref_kernel.trace_sample_megakernel(
             torch.zeros(1032, 24), torch.zeros(1, 12), torch.zeros(1, 13), 1,

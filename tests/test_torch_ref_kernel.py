@@ -9,6 +9,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 
 from strolle_tpu.camera import pixel_rays as jax_pixel_rays
 from strolle_tpu.camera import screen_grid as jax_screen_grid

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 
 from strolle_tpu.models.reference import trace_sample as jax_trace_sample
 from strolle_tpu.scene.cornell import cornell_box as jax_cornell_box

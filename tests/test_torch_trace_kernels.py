@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 
 from strolle_tpu.ops.hit import surface_at as jax_surface_at
 from strolle_tpu.ops.pallas.trace_kernels import (
