@@ -20,9 +20,21 @@ Run from the root of the repository:  python3 chip_smoke.py
    launch as the GI schedule says, kernel A never; every channel stays
    finite, and the mean image of frames 6-17 is within 10% of a
    64-sample reference-mode depth-1 image.
-5. Times each kernel and its plain version with CUDA events, the
-   reference-mode path in ms/frame and Mrays/s, and the realtime frame in
-   ms/frame, per stage, and under the profiler.
+5. The textured dungeon (8,393 triangles, 2048x2048 atlas) at 800x608
+   with the sun at altitude 0.35 and its sky LUTs: holds kernels 5 and 6
+   (the big-scene stream kernels) against their plain versions on the
+   primary rays, the bounce-0 shadow rays toward the lights, rays toward
+   the sun with t_max = inf and 65,536 seeded rays from inside the
+   level, with their counts of box and triangle tests; drives reference
+   mode (trace_sample depth 4 with the sky, render_reference for 8
+   frames) and 18 realtime frames (RenderConfig(include_sky=True)), each
+   with the counts set to 0 before and read after: kernels 5 and 6
+   launch as the bounce loop, the GI schedule and the checkerboard
+   compaction say, kernels A, B, C and 4 never; the realtime mean image
+   of frames 6-17 is within 15% of a 64-sample depth-1 sky reference.
+6. Times each kernel and its plain version with CUDA events, the
+   reference-mode paths in ms/frame and Mrays/s, and both realtime
+   frames in ms/frame, per stage, and under the profiler.
 
 Prints a "kernels" JSON line and, last, {"ok": true, "device": ...}.
 Any failed check raises: the script then exits non-zero and prints no
@@ -53,6 +65,12 @@ DEVICE = "cuda"
 RT_FRAMES = 18
 RT_TIMING_CYCLES = 3
 REF_SAMPLES = 64
+#: The dungeon: the sun altitude bench.py sets, the seeded random rays
+#: of the stream kernels' comparison, and its realtime tolerance (the
+#: bound the JAX package's dungeon oracles hold, tests/test_dungeon_oracle.py).
+DG_SUN = 0.35
+STREAM_RANDOM_RAYS = 65536
+DG_RT_TOLERANCE = 0.15
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 #: tensor cores, and HBM3 bandwidth.
@@ -68,6 +86,9 @@ FLOPS_MT, FLOPS_BW = 46, 31
 #: as 1: pvec 9, det 5, sign 1, barycentric w 2, normal 15, |n|^2 5,
 #: fmax + sqrt + div 3, flip 4, uv 10, material id 1. A miss skips it.
 FLOPS_RESOLVE = 55
+#: A slab test of kernels 5 and 6 (csrc/stream_kernels.cu): 6 subtracts,
+#: 6 multiplies, 10 min/max, 3 compares.
+FLOPS_SLAB = 25
 FLOPS_SHADE = {False: 420, True: 190}
 
 
@@ -347,6 +368,155 @@ def compare_surface_kernel(variants: dict, cam, device) -> float:
     return worst
 
 
+def dungeon_scene(device):
+    """The dungeon with its BVH and clusters (the native builder, built
+    here with one g++), the sun at DG_SUN, and its LUTs."""
+    from strolle_tpu_torch.bvh import scene_with_bvh
+    from strolle_tpu_torch.scene.demo import dungeon
+    from strolle_tpu_torch.sky.atmosphere import luts_for
+
+    scene = scene_with_bvh(dungeon(device=device)).replace(sun_altitude=DG_SUN)
+    return scene, luts_for(DG_SUN, device)
+
+
+def stream_ray_sets(scene, cam, device) -> dict:
+    """The ray sets kernels 5 and 6 are held on: name -> (o, d, t_max)
+    (t_max None: a closest-hit set only)."""
+    from strolle_tpu_torch.ops.trace import trace_surface
+    from strolle_tpu_torch.sky.atmosphere import sun_direction
+
+    po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
+    surf = trace_surface(scene, po, pd)
+    sun = sun_direction(scene.sun_azimuth, scene.sun_altitude, device=device)
+    lo = scene.clusters[:, 0:3].amin(0).cpu().numpy()
+    hi = scene.clusters[:, 3:6].amax(0).cpu().numpy()
+    rs = np.random.RandomState(11)
+    n = STREAM_RANDOM_RAYS
+    ro = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    rd = rs.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    rt = rs.uniform(0.05, 5.0, n).astype(np.float32)
+    return {
+        "primary": (po.contiguous(), pd.contiguous(), None),
+        "lights": (so, sd, slen),
+        "sun": (surf.point.contiguous(), sun.expand_as(surf.point).contiguous(),
+                torch.full(po.shape[:-1], math.inf, device=device)),
+        "random": tuple(torch.tensor(x, device=device) for x in (ro, rd, rt)),
+    }
+
+
+def stream_inputs(scene, o, d, t_max=None) -> dict:
+    """The prepared inputs of one stream launch: boxes, rows, rays and the
+    scene-box cap (kernel 5) or the clipped t_max (kernel 6)."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+    from strolle_tpu_torch.ops.trace import packed_geom_rows
+
+    clus = scene.clusters.contiguous()
+    rows = packed_geom_rows(scene)
+    cap = (sk.scene_tcap(clus, o, d) if t_max is None
+           else sk.clipped_t_max(clus, o, d, t_max)).contiguous()
+    return dict(clus=clus, subs=sk.sub_aabbs(clus, rows).contiguous(), rows=rows, o=o, d=d,
+                cap=cap)
+
+
+def stream_launch(x: dict, anyhit: bool, work=None):
+    """One launch of kernel 5 or 6 (the counting variant when ``work`` is
+    given) on prepared inputs; returns its outputs."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    batch = x["o"].shape[:-1]
+    dev = x["o"].device
+    if anyhit:
+        outs = (torch.empty(batch, dtype=torch.bool, device=dev),)
+        entry = "strolle_stream_trace_anyhit"
+    else:
+        outs = (torch.empty(batch, device=dev), torch.empty(batch, dtype=torch.int32, device=dev),
+                torch.empty(batch, device=dev), torch.empty(batch, device=dev))
+        entry = "strolle_stream_trace_surface"
+    sk._launch(entry, x["clus"], x["subs"], x["rows"], x["o"], x["d"], x["cap"], outs, work)
+    return outs
+
+
+def stream_plain(x: dict, anyhit: bool, work=None):
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    fn = sk.stream_trace_anyhit_plain if anyhit else sk.stream_trace_surface_plain
+    out = fn(x["clus"], x["subs"], x["rows"], x["o"], x["d"], x["cap"], work)
+    return (out,) if anyhit else out
+
+
+def compare_stream_kernels(scene, cam, device) -> tuple[dict, dict]:
+    """Kernels 5 and 6 against their plain versions on the dungeon's ray
+    sets, launched through their wrappers, and their counting variants'
+    box and triangle tests against the plain versions'. Returns (max abs
+    error per kernel, the ray sets)."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    sets = stream_ray_sets(scene, cam, device)
+    err = {"5": 0.0, "6": 0.0}
+    for name, (o, d, t_max) in sets.items():
+        n = o.numel() // 3
+        for anyhit in ((False, True) if name in ("primary", "random") else (True,)):
+            if anyhit and t_max is None:
+                continue
+            x = stream_inputs(scene, o, d, t_max if anyhit else None)
+            if anyhit:
+                got = (sk.stream_trace_anyhit(x["clus"], x["rows"], o, d, t_max),)
+            else:
+                g = sk.stream_trace_surface(x["clus"], x["rows"], o, d)
+                got = (g["t"], torch.where(g["hit"], g["tri"], -1), g["u"], g["v"])
+            want = stream_plain(x, anyhit)
+            work = torch.zeros((n, 2), dtype=torch.int32, device=device)
+            pwork = torch.zeros_like(work)
+            stream_launch(x, anyhit, work)
+            stream_plain(x, anyhit, pwork)
+            torch.cuda.synchronize()
+            k = "6" if anyhit else "5"
+            what = f"kernel {k} ({name}, {n} rays)"
+            # The same walk, slab tests and fused multiply-adds: everything
+            # bit-equal; allow 1e-5 of rays for the plain version's float64
+            # emulation of fma (double rounding near a float32 midpoint).
+            if anyhit:
+                mism = int((got[0] != want[0]).sum())
+                e = float((got[0] != want[0]).float().max())
+                rate = got[0].float().mean().item()
+            else:
+                tri, ptri = got[1], want[1]
+                mism = int((tri != ptri).sum())
+                same = tri == ptri
+                e = max(float((a - b)[same].abs().max()) for a, b in zip(got, want)
+                        if a.dtype == torch.float32)
+                rate = (tri >= 0).float().mean().item()
+                check(e <= 1e-5, f"{what}: t/u/v differ by {e}")
+            wmism = int((work != pwork).any(-1).sum())
+            print(f"{what} vs plain: mismatches {mism}, max err {e:.3g}, work mismatches "
+                  f"{wmism}, box tests {int(work[:, 0].sum())}, triangle tests "
+                  f"{int(work[:, 1].sum())}, {'occluded' if anyhit else 'hit'} rate {rate:.3f}",
+                  flush=True)
+            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+            check(wmism <= 1e-5 * n, f"{what}: test counts differ on {wmism} rays")
+            # primaries may all hit, and the sun may be hidden from every
+            # visible surface of the closed level
+            check(rate > 0.0 and (rate < 1.0 or name in ("primary", "sun")),
+                  f"{what}: degenerate")
+            err[k] = max(err[k], e)
+    return err, sets
+
+
+def stream_bound(x: dict, anyhit: bool) -> tuple[float, str, dict]:
+    """The walk's own work on these inputs (the counting variant's box and
+    triangle tests) over the fp32 peak, against its bytes (rows and boxes
+    read once, rays in and results out) over the HBM rate."""
+    n = x["o"].numel() // 3
+    work = torch.zeros((n, 2), dtype=torch.int32, device=x["o"].device)
+    stream_launch(x, anyhit, work)
+    box, tri = (int(v) for v in work.sum(0, dtype=torch.int64))
+    nbytes = (4 * (x["rows"].numel() + x["clus"].numel() + x["subs"].numel())
+              + n * (24 + 4) + n * (1 if anyhit else 16))
+    t, by = bound(box * FLOPS_SLAB + tri * FLOPS_MT, nbytes)
+    return t, by, {"rays": n, "box_tests": box, "triangle_tests": tri}
+
+
 def gi_sampling_frame(f: int) -> bool:
     """GI sampling (kernel 4's bounce rays and one kernel-B shadow ray)
     runs on frames 0, 2, 4, 5 of each 6-frame cycle; frames 1 and 3 run
@@ -354,28 +524,34 @@ def gi_sampling_frame(f: int) -> bool:
     return not (f % 6 < 4 and f % 2 == 1)
 
 
-def realtime_launches(frames: int) -> dict:
+def realtime_launches(frames: int, big: bool = False) -> dict:
     """The launches the realtime frame makes over ``frames`` frames from
-    frame 0: kernel 4 once for the primaries and once on GI-sampling
-    frames; kernel B four times for DI (sampling, two spatial
-    cross-visibility rays, resolve) and once or twice for GI."""
+    frame 0. Cornell: kernel 4 once for the primaries and once on
+    GI-sampling frames; kernel B four times for DI (sampling, two spatial
+    cross-visibility rays, resolve) and once or twice for GI. A big scene
+    (the dungeon) takes kernels 5 and 6 instead, with the checkerboard
+    compaction: kernel 5 as kernel 4; kernel 6 four times a frame (DI's
+    two spatial rays and GI spatial's two go as one paired launch)."""
     sampling = sum(gi_sampling_frame(f) for f in range(frames))
+    if big:
+        return {"stream_trace_surface": frames + sampling, "stream_trace_anyhit": 4 * frames}
     return {
         "trace_surface": frames + sampling,
         "trace_anyhit_brute": 4 * frames + sampling + 2 * (frames - sampling),
     }
 
 
-def drive_realtime(scene, cam, seed0: int):
+def drive_realtime(scene, cam, seed0: int, config=None, luts=None):
     """RT_FRAMES frames of render_frame_fused from a fresh state; checks
     every channel of every frame. Returns (mean image of frames 6 on,
     final state)."""
-    from strolle_tpu_torch.models.restir import init_state, render_frame_fused
+    from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame_fused
 
+    config = config or RenderConfig()
     state = init_state(cam, device=cam.device)
     acc = None
     for f in range(RT_FRAMES):
-        ch, state = render_frame_fused(scene, cam, state, seed0 + f)
+        ch, state = render_frame_fused(scene, cam, state, seed0 + f, config, luts)
         for k, v in ch.items():
             check(bool(torch.isfinite(v).all()), f"realtime frame {f}: {k} not finite")
         check(tuple(ch["image"].shape) == (cam.height, cam.width, 3), "realtime image shape")
@@ -384,22 +560,24 @@ def drive_realtime(scene, cam, seed0: int):
     return acc / (RT_FRAMES - 6), state
 
 
-def reference_depth1(scene, cam) -> torch.Tensor:
+def reference_depth1(scene, cam, include_sky: bool = False, luts=None) -> torch.Tensor:
     from strolle_tpu_torch.models.reference import trace_sample
 
     acc = None
     for s in range(REF_SAMPLES):
-        img = trace_sample(scene, cam, s, depth=1, include_sky=False)
+        img = trace_sample(scene, cam, s, depth=1, include_sky=include_sky, luts=luts)
         acc = img if acc is None else acc + img
     return acc / REF_SAMPLES
 
 
-def time_realtime(scene, cam, state, seed0: int) -> tuple[float, list, object]:
+def time_realtime(scene, cam, state, seed0: int, config=None,
+                  luts=None) -> tuple[float, list, object]:
     """ms/frame of render_frame_fused: the median over RT_TIMING_CYCLES
     whole cycles of (cycle time / 6), CUDA events. ``state`` starts at a
     cycle boundary."""
-    from strolle_tpu_torch.models.restir import render_frame_fused
+    from strolle_tpu_torch.models.restir import RenderConfig, render_frame_fused
 
+    config = config or RenderConfig()
     check(state.frame % 6 == 0, "timing must start at a GI cycle boundary")
     per_frame = []
     for c in range(RT_TIMING_CYCLES):
@@ -407,21 +585,21 @@ def time_realtime(scene, cam, state, seed0: int) -> tuple[float, list, object]:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for f in range(6):
-            _, state = render_frame_fused(scene, cam, state, seed0 + 6 * c + f)
+            _, state = render_frame_fused(scene, cam, state, seed0 + 6 * c + f, config, luts)
         end.record()
         end.synchronize()
         per_frame.append(start.elapsed_time(end) / 6)
     return statistics.median(per_frame), per_frame, state
 
 
-def time_stages(scene, cam, state, seed0: int) -> tuple[dict, object]:
+def time_stages(scene, cam, state, seed0: int, cfg=None, luts=None) -> tuple[dict, object]:
     """Per-frame ms of each stage of render_frame, averaged over one GI
-    cycle: CUDA events between the stage calls of the default config."""
+    cycle: CUDA events between the stage calls of ``cfg``."""
     from strolle_tpu_torch.models import restir as rt
     from strolle_tpu_torch.sky.atmosphere import luts_for
 
-    cfg = rt.RenderConfig()
-    luts = luts_for(scene.sun_altitude, cam.device)
+    cfg = cfg or rt.RenderConfig()
+    luts = luts if luts is not None else luts_for(scene.sun_altitude, cam.device)
     names = ("prelude", "history", "di", "gi", "denoise_pair", "compose")
     total = dict.fromkeys(names, 0.0)
     for f in range(6):
@@ -430,7 +608,7 @@ def time_stages(scene, cam, state, seed0: int) -> tuple[dict, object]:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         ev[0].record()
         surf, reproj, sky, bn1, bn2 = rt._stage_prelude(
-            scene, cam, state.prev_camera, state.prev_surface, frame, None)
+            scene, cam, state.prev_camera, state.prev_surface, frame, luts, cfg.include_sky)
         ev[1].record()
         di_rhs, gi_rep, rhs_surf = rt._stage_history(
             cam, reproj, state.di_prev, state.gi_prev, state.prev_surface)
@@ -465,11 +643,14 @@ def main() -> int:
         from strolle_tpu_torch.models.reference import (
             init_accumulator, render_reference, trace_sample,
         )
+        from strolle_tpu_torch import native
+        from strolle_tpu_torch.models.restir import RenderConfig, render_frame_fused
         from strolle_tpu_torch.ops.kernels import cuda_lib
         from strolle_tpu_torch.ops.kernels import ref_kernel as rk
         from strolle_tpu_torch.ops.kernels import trace_kernels as tk
         from strolle_tpu_torch.ops.trace import packed_geom_rows, packed_tri_rows
         from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+        from strolle_tpu_torch.scene.demo import dungeon_camera
         from strolle_tpu_torch.sky.atmosphere import luts_for
     except ImportError as e:
         print(f"chip_smoke: strolle_tpu_torch not found beside this script ({e})",
@@ -494,6 +675,10 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
     print(f"build: {build_s:.1f} s ({len(cuda_lib.sources())} sources, one nvcc)", flush=True)
+    t0 = time.perf_counter()
+    native.library()
+    native_s = time.perf_counter() - t0
+    print(f"build: {native_s:.1f} s (native host library, one g++)", flush=True)
 
     # --- 2. each kernel against its plain version -------------------------
     scene = cornell_box(device=device)
@@ -567,7 +752,60 @@ def main() -> int:
           f"relative difference {rel:.4f}", flush=True)
     check(rel < 0.10, f"realtime mean off the reference by {rel:.3f}")
 
-    # --- 5. timings -----------------------------------------------------
+    # --- 5. the dungeon: kernels 5 and 6, reference mode, the realtime frame
+    t0 = time.perf_counter()
+    dg, dluts = dungeon_scene(device)
+    dg_load_s = time.perf_counter() - t0
+    dcam = dungeon_camera(WIDTH, HEIGHT, device=device)
+    print(f"dungeon: {dg.geometry.num_triangles} triangles, {dg.clusters.shape[0]} clusters, "
+          f"atlas {tuple(dg.atlas.image.shape)}, tex_channels {dg.materials.tex_channels}, "
+          f"loaded with its BVH in {dg_load_s:.1f} s", flush=True)
+    serr, ssets = compare_stream_kernels(dg, dcam, device)
+    err.update(serr)
+
+    cuda_lib.reset_launch_counts()
+    dimg = trace_sample(dg, dcam, SEED, depth=DEPTH, include_sky=True, luts=dluts)
+    dacc = init_accumulator(dcam)
+    for f in range(FRAMES):
+        davg, dacc = render_reference(dg, dcam, dacc, 100 + f, depth=DEPTH, include_sky=True,
+                                      luts=dluts)
+    torch.cuda.synchronize()
+    dg_launches = dict(cuda_lib.LAUNCHES)
+    print(f"dungeon reference-mode launches: {dg_launches}", flush=True)
+    for k in ("stream_trace_surface", "stream_trace_anyhit"):
+        check(dg_launches.get(k, 0) == (DEPTH + 1) * (1 + FRAMES), f"dungeon {k} launch count")
+    for k in ("trace_sample_megakernel", "trace_closest_brute", "trace_anyhit_brute",
+              "trace_surface"):
+        check(dg_launches.get(k, 0) == 0, f"dungeon reference mode launched {k}")
+    for what, x in (("dungeon image", dimg), ("dungeon accumulated", davg)):
+        check(tuple(x.shape) == (HEIGHT, WIDTH, 3), f"{what}: shape {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"{what}: non-finite values")
+        check(1e-3 < x.mean().item() < 5.0, f"{what}: implausible mean {x.mean().item()}")
+    check(bool((dacc.samples == FRAMES).all()), "dungeon render_reference did not accumulate")
+    check(abs(davg.mean().item() - dimg.mean().item()) < 0.1 * davg.mean().item(),
+          "dungeon accumulated mean drifted")
+
+    dcfg = RenderConfig(include_sky=True)
+    cuda_lib.reset_launch_counts()
+    drt_mean, drt_state = drive_realtime(dg, dcam, 5000, dcfg, dluts)
+    torch.cuda.synchronize()
+    drt_launches = dict(cuda_lib.LAUNCHES)
+    print(f"dungeon realtime launches ({RT_FRAMES} frames): {drt_launches}", flush=True)
+    want = realtime_launches(RT_FRAMES, big=True)
+    for k, n in want.items():
+        check(drt_launches.get(k, 0) == n, f"dungeon realtime {k} launches "
+              f"{drt_launches.get(k, 0)} != {n}")
+    for k in ("trace_sample_megakernel", "trace_closest_brute", "trace_anyhit_brute",
+              "trace_surface"):
+        check(drt_launches.get(k, 0) == 0, f"dungeon realtime frame launched {k}")
+    dref1 = reference_depth1(dg, dcam, include_sky=True, luts=dluts)
+    drel = abs(drt_mean.mean().item() - dref1.mean().item()) / dref1.mean().item()
+    print(f"dungeon realtime mean image (frames 6-{RT_FRAMES - 1}) "
+          f"{drt_mean.mean().item():.5f} vs {REF_SAMPLES}-sample sky reference depth 1 "
+          f"{dref1.mean().item():.5f}: relative difference {drel:.4f}", flush=True)
+    check(drel < DG_RT_TOLERANCE, f"dungeon realtime mean off the reference by {drel:.3f}")
+
+    # --- 6. timings -----------------------------------------------------
     rays = WIDTH * HEIGHT * (DEPTH + 1) * 2
     ms_mega = time_ms(lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False))
     ms_staged = time_ms(
@@ -622,8 +860,6 @@ def main() -> int:
     # the realtime frame: whole cycles, per stage, under the profiler
     rt_ms, rt_cycles, rt_state = time_realtime(scene, cam, rt_state, 2000)
     rt_stages, rt_state = time_stages(scene, cam, rt_state, 3000)
-    from strolle_tpu_torch.models.restir import render_frame_fused
-
     holder = {"state": rt_state, "seed": 4000}
 
     def rt_frame():
@@ -631,6 +867,37 @@ def main() -> int:
         holder["seed"] += 1
 
     rt_profile = profile_frames(rt_frame, frames=6)
+
+    # the dungeon: reference mode, the realtime frame, kernels 5 and 6
+    ms_dg_ref = time_ms(
+        lambda: trace_sample(dg, dcam, SEED, depth=DEPTH, include_sky=True, luts=dluts),
+        warmup=1, iters=5,
+    )
+    dacc_t = init_accumulator(dcam)
+    ms_dg_render = time_ms(
+        lambda: render_reference(dg, dcam, dacc_t, 3, depth=DEPTH, include_sky=True, luts=dluts),
+        warmup=1, iters=5,
+    )
+    drt_ms, drt_cycles, drt_state = time_realtime(dg, dcam, drt_state, 6000, dcfg, dluts)
+    drt_stages, drt_state = time_stages(dg, dcam, drt_state, 7000, dcfg, dluts)
+    dholder = {"state": drt_state, "seed": 8000}
+
+    def drt_frame():
+        _, dholder["state"] = render_frame_fused(dg, dcam, dholder["state"], dholder["seed"],
+                                                 dcfg, dluts)
+        dholder["seed"] += 1
+
+    drt_profile = profile_frames(drt_frame, frames=6)
+    # kernel 5 on the realtime frame's primary rays, kernel 6 on the
+    # reference loop's bounce-0 shadow rays toward the lights
+    x5 = stream_inputs(dg, *ssets["primary"][:2])
+    x6 = stream_inputs(dg, *ssets["lights"])
+    ms_5 = time_ms(lambda: stream_launch(x5, False))
+    plain_5 = time_ms(lambda: stream_plain(x5, False), warmup=1, iters=3)
+    bound_5, by_5, work_5 = stream_bound(x5, False)
+    ms_6 = time_ms(lambda: stream_launch(x6, True))
+    plain_6 = time_ms(lambda: stream_plain(x6, True), warmup=1, iters=3)
+    bound_6, by_6, work_6 = stream_bound(x6, True)
 
     timings = {
         "card": card,
@@ -653,6 +920,21 @@ def main() -> int:
         "profile_staged": profile_frames(
             lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False,
                                  use_megakernel=False), frames=2),
+        "native_build_s": native_s,
+        "dungeon_load_s": dg_load_s,
+        "dungeon_ref_ms_per_frame": ms_dg_ref,
+        "dungeon_ref_mrays_per_s": rays / (ms_dg_ref * 1e-3) / 1e6,
+        "dungeon_render_reference_ms_per_frame": ms_dg_render,
+        "dungeon_realtime_ms_per_frame": drt_ms,
+        "dungeon_realtime_cycle_ms_per_frame": drt_cycles,
+        "dungeon_realtime_stage_ms_per_frame": drt_stages,
+        "dungeon_profile_realtime": drt_profile,
+        "dungeon_realtime_mean_vs_reference": drel,
+        "dungeon_profile_ref": profile_frames(
+            lambda: trace_sample(dg, dcam, SEED, depth=DEPTH, include_sky=True, luts=dluts),
+            frames=2),
+        "stream_surface_work": work_5,
+        "stream_anyhit_work": work_6,
     }
     print("timings: " + json.dumps(timings), flush=True)
 
@@ -690,7 +972,21 @@ def main() -> int:
         "max_abs_err": err["4"], "ms": ms_4, "plain_ms": plain_4,
         "bound_ms": bound_4, "bound_by": by_4, "library_ms": None,
     })
+    for name, key, ms, plain, bnd, by in (
+        ("stream_trace_surface", "5", ms_5, plain_5, bound_5, by_5),
+        ("stream_trace_anyhit", "6", ms_6, plain_6, bound_6, by_6),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "strolle_tpu_torch/csrc/stream_kernels.cu",
+            "replaces": "strolle_tpu/ops/pallas/stream_kernels.py:"
+                        + ("660" if key == "5" else "736"),
+            "launches": dg_launches[name] + drt_launches[name],
+            "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        })
     for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: never launched on its main path")
         check(all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")),
               f"{k['name']}: non-finite timing")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """Carry-over between the JAX package's data and the port's.
 
-The JAX package's Scene, Camera, RefAccumulator, the realtime frame's
+The JAX package's Scene (with its atlas image, BvhArrays and cluster
+rows), Camera, RefAccumulator, the realtime frame's
 RenderState (with its reservoirs, denoiser states, previous Surface and
 Camera) and AtmosphereLuts travel as nested dicts of numpy arrays
 (field name -> array, or a dict for a nested dataclass), so this module
@@ -18,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bvh.builder import BvhArrays
 from .camera import Camera
 from .denoise.svgf import DenoiserState
 from .device import resolve_device
@@ -26,10 +28,13 @@ from .models.restir import RenderState
 from .ops.hit import Surface
 from .restir.gi import GiReservoirs
 from .restir.reservoir import DiReservoirs
-from .scene.types import Geometry, Lights, Materials, Scene
+from .scene.types import Geometry, Lights, Materials, Scene, make_atlas
 from .sky.atmosphere import AtmosphereLuts
 
-_INT_FIELDS = {"material_id", "alpha_blend", "kind", "prev_kind", "remap", "killed"}
+_INT_FIELDS = {
+    "material_id", "alpha_blend", "kind", "prev_kind", "remap", "killed", "child",
+    "child_count",
+}
 
 
 def _tensors(cls, arrays: dict, device, skip=()) -> dict:
@@ -47,11 +52,14 @@ def _tensors(cls, arrays: dict, device, skip=()) -> dict:
 def scene_from_arrays(arrays: dict, device=None) -> Scene:
     """The port's Scene from a JAX Scene given as nested numpy dicts
     (``geometry``, ``materials``, ``lights`` sub-dicts; ``atlas`` None
-    or an array; scalars and flags as they are)."""
+    or the atlas image; ``bvh`` None or a dict of the BvhArrays fields;
+    ``clusters`` None or the [K, 8] rows; scalars and flags as they are)."""
     device = resolve_device(device)
     mats = arrays["materials"]
     lights = arrays["lights"]
     atlas = arrays.get("atlas")
+    bvh = arrays.get("bvh")
+    clusters = arrays.get("clusters")
     return Scene(
         geometry=Geometry(**_tensors(Geometry, arrays["geometry"], device)),
         materials=Materials(
@@ -64,9 +72,18 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
         ),
         atlas=None
         if atlas is None
-        else torch.tensor(np.asarray(atlas), dtype=torch.float32, device=device),
+        else make_atlas(torch.tensor(np.asarray(atlas), dtype=torch.float32, device=device)),
         sun_azimuth=float(np.asarray(arrays["sun_azimuth"])),
         sun_altitude=float(np.asarray(arrays["sun_altitude"])),
+        bvh=None
+        if bvh is None
+        else BvhArrays(
+            **_tensors(BvhArrays, bvh, device, skip=("max_depth",)),
+            max_depth=int(bvh["max_depth"]),
+        ),
+        clusters=None
+        if clusters is None
+        else torch.tensor(np.asarray(clusters), dtype=torch.float32, device=device),
         has_alpha=bool(arrays.get("has_alpha", False)),
         flat_normals=bool(arrays.get("flat_normals", False)),
         has_metal=bool(arrays.get("has_metal", True)),
@@ -89,7 +106,9 @@ def scene_to_arrays(scene: Scene) -> dict:
         "geometry": _numpy(scene.geometry),
         "materials": _numpy(scene.materials),
         "lights": _numpy(scene.lights),
-        "atlas": None if scene.atlas is None else scene.atlas.detach().cpu().numpy(),
+        "atlas": None if scene.atlas is None else scene.atlas.image.detach().cpu().numpy(),
+        "bvh": None if scene.bvh is None else _numpy(scene.bvh),
+        "clusters": None if scene.clusters is None else scene.clusters.detach().cpu().numpy(),
     }
     for k in ("sun_azimuth", "sun_altitude", "has_alpha", "flat_normals", "has_metal"):
         out[k] = getattr(scene, k)

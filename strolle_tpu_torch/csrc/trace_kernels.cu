@@ -24,51 +24,24 @@
 //
 // Floating point: built with --fmad=false and no fast math (see
 // ops/kernels/cuda_lib.py), with explicit fmaf exactly where the plain
-// version (ops/intersect.py) fuses; each operation then rounds as there,
-// so t is bit-identical to it and tri equal, coplanar ties included.
+// version (ops/intersect.py) fuses (moller_trumbore.cuh); each operation
+// then rounds as there, so t is bit-identical to it and tri equal,
+// coplanar ties included.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "moller_trumbore.cuh"
+
 namespace {
 
-constexpr float kEps = 1.1920929e-07f;  // float32 machine epsilon
+using strolle::moller_trumbore;
+using strolle::MtHit;
+
 constexpr int kRowWidth = 12;
 constexpr int kGeomWidth = 28;
 constexpr int kThreads = 256;
-
-struct MtHit {
-  float t, u, v;
-};
-
-__device__ __forceinline__ MtHit moller_trumbore(const float* r, float ox, float oy,
-                                                 float oz, float dx, float dy,
-                                                 float dz) {
-  const float v0x = r[0], v0y = r[1], v0z = r[2];
-  const float e1x = r[3], e1y = r[4], e1z = r[5];
-  const float e2x = r[6], e2y = r[7], e2z = r[8];
-  // Multiply-adds fused exactly where XLA:CPU fuses them in the JAX
-  // package (and where ops/intersect.py's plain version does):
-  // cross = fma(a1, b2, -(a2 * b1)), dot = fma(a2, b2, fma(a1, b1, a0 * b0)).
-  // pvec = d x e2
-  const float px = fmaf(dy, e2z, -(dz * e2y));
-  const float py = fmaf(dz, e2x, -(dx * e2z));
-  const float pz = fmaf(dx, e2y, -(dy * e2x));
-  const float det = fmaf(e1z, pz, fmaf(e1y, py, e1x * px));
-  const float inv_det = fabsf(det) < kEps ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
-  const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-  const float u = fmaf(tz, pz, fmaf(ty, py, tx * px)) * inv_det;
-  // qvec = tvec x e1
-  const float qx = fmaf(ty, e1z, -(tz * e1y));
-  const float qy = fmaf(tz, e1x, -(tx * e1z));
-  const float qz = fmaf(tx, e1y, -(ty * e1x));
-  const float v = fmaf(dz, qz, fmaf(dy, qy, dx * qx)) * inv_det;
-  const float t = fmaf(e2z, qz, fmaf(e2y, qy, e2x * qx)) * inv_det;
-  const bool hit = fabsf(det) >= kEps && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                   u + v <= 1.0f && t > 0.0f;
-  return {hit ? t : INFINITY, u, v};
-}
 
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
                                           int n) {

@@ -2,10 +2,13 @@
 strolle_tpu/models/reference.py).
 
 By default one sample of every pixel is one launch of the megakernel
-(ops/kernels/ref_kernel.py). ``use_megakernel=False`` runs the staged
-loop instead — per bounce a closest-hit launch (kernel A), the shading
-in tensor ops, and a shadow-ray any-hit launch (kernel B) — which is
-the megakernel's oracle and the forward pass that gradients take.
+(ops/kernels/ref_kernel.py) where the scene allows it: no sky, no atlas,
+no alpha and at most 1024 triangles. Otherwise, or with
+``use_megakernel=False``, the staged loop runs — per bounce a
+closest-hit launch (kernel A, or kernel 5 for a big scene), the sky on
+miss rays, the shading in tensor ops, and a shadow-ray any-hit launch
+(kernel B, or kernel 6) — which is also the megakernel's oracle and the
+forward pass that gradients take.
 Accumulation across frames resets when the camera moves by more than
 0.0025 in any entry of its projection-view matrix.
 """
@@ -25,8 +28,9 @@ from ..ops.kernels.ref_kernel import (
     trace_sample_megakernel,
 )
 from ..ops.lights import gather_light, radiance, shadow_ray_wnoise
-from ..ops.trace import check_scene_supported, trace_anyhit, trace_surface
+from ..ops.trace import BRUTE_FORCE_MAX_TRIS, check_scene_supported, trace_anyhit, trace_surface
 from ..scene.types import Scene
+from ..sky.atmosphere import luts_for, sample_atmosphere, sample_sky, sun_direction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,10 +53,16 @@ def init_accumulator(camera: Camera) -> RefAccumulator:
     )
 
 
-def _check_supported(scene: Scene, include_sky: bool) -> None:
-    if include_sky:
-        raise NotImplementedError("the sky (include_sky=True) is ported in slice 3")
-    check_scene_supported(scene)
+def megakernel_fits(scene: Scene, include_sky: bool, luts=None) -> bool:
+    """The megakernel takes no sky, no atlas, no alpha and at most
+    BRUTE_FORCE_MAX_TRIS triangles, as the JAX package's."""
+    return (
+        not include_sky
+        and luts is None
+        and scene.atlas is None
+        and not scene.has_alpha
+        and scene.geometry.num_triangles <= BRUTE_FORCE_MAX_TRIS
+    )
 
 
 def sample_pixels(
@@ -63,14 +73,22 @@ def sample_pixels(
     depth: int = 5,
     include_sky: bool = True,
     use_megakernel: bool | None = None,
+    luts=None,
 ) -> torch.Tensor:
     """One path-traced sample for each pixel in ``grid``; radiance
-    [..., 3]: emissive + one-light NEE + layered-BRDF continuation, with
-    roughness regularised after the first bounce."""
-    _check_supported(scene, include_sky)
+    [..., 3]: the sky on miss rays (through ``luts`` when given, else the
+    analytic march), emissive + one-light NEE + layered-BRDF
+    continuation, with roughness regularised after the first bounce.
+    ``use_megakernel``: None takes the megakernel where it fits, True
+    requires it, False takes the staged loop."""
+    check_scene_supported(scene)
+    fits = megakernel_fits(scene, include_sky, luts)
+    if use_megakernel and not fits:
+        raise ValueError("use_megakernel=True: the megakernel takes no sky, atlas, alpha or "
+                         f"scene over {BRUTE_FORCE_MAX_TRIS} triangles")
     o, d = pixel_rays(camera, grid)
     state = rng.wnoise_new(seed, grid[..., 0], grid[..., 1])
-    if use_megakernel is not False:
+    if use_megakernel is not False and fits:
         return _sample_pixels_megakernel(scene, o, d, state, depth)
 
     hw = o.shape[:-1]
@@ -82,8 +100,15 @@ def sample_pixels(
     has_lights = lcount > 0
     light_pdf = 1.0 / max(float(lcount), 1.0)
 
+    sun = sun_direction(scene.sun_azimuth, scene.sun_altitude, device=dev)
     for bounce in range(depth + 1):
         surf = trace_surface(scene, o, d, regularize=bounce > 0, use_pallas=False)
+
+        # the sky on miss rays
+        if include_sky:
+            missed = alive & ~surf.is_some
+            sky = sample_atmosphere(luts, sun, d) if luts is not None else sample_sky(sun, d)
+            color = torch.where(missed[..., None], color + throughput * sky, color)
         alive = alive & surf.is_some
 
         # emissive
@@ -150,10 +175,11 @@ def trace_sample(
     depth: int = 5,
     include_sky: bool = True,
     use_megakernel: bool | None = None,
+    luts=None,
 ) -> torch.Tensor:
     """One path-traced sample per pixel over the full screen [H, W, 3]."""
     return sample_pixels(
-        scene, camera, screen_grid(camera), seed, depth, include_sky, use_megakernel
+        scene, camera, screen_grid(camera), seed, depth, include_sky, use_megakernel, luts
     )
 
 
@@ -165,10 +191,15 @@ def render_reference(
     depth: int = 5,
     include_sky: bool = True,
     use_megakernel: bool | None = None,
+    luts=None,
 ):
     """Accumulating reference render. Returns (image [H, W, 3], accum').
-    The keep-or-reset decision stays on the device (no host sync)."""
-    sample = trace_sample(scene, camera, seed, depth, include_sky, use_megakernel)
+    With the sky on and no ``luts``, the LUTs of the scene's sun altitude
+    come from the host cache (``luts_for``). The keep-or-reset decision
+    stays on the device (no host sync)."""
+    if include_sky and luts is None:
+        luts = luts_for(scene.sun_altitude, camera.device)
+    sample = trace_sample(scene, camera, seed, depth, include_sky, use_megakernel, luts)
     keep = torch.all(torch.abs(accum.projection_view - camera.projection_view) <= 0.0025)
     keep_f = keep.to(torch.float32)
     color = accum.color * keep_f + sample

@@ -13,10 +13,9 @@ stages:
     denoise   SVGF on the DI- and GI-diffuse channels
     compose
 
-The stage functions keep the JAX package's names and arguments (the
-prelude without the sky switch: the sky radiance on miss pixels is not
-ported), so a test can feed both packages the same inputs stage by
-stage. The frame
+The stage functions keep the JAX package's names and arguments (less
+the device mesh), so a test can feed both packages the same inputs stage
+by stage. The frame
 counter is a Python int: the GI schedule is decided on the host and no
 frame reads a tensor back to pick its passes.
 """
@@ -27,7 +26,7 @@ import dataclasses
 
 import torch
 
-from ..camera import Camera
+from ..camera import Camera, pixel_rays, screen_grid
 from ..config import DEFAULT_TUNING, Tuning
 from ..denoise.svgf import DenoiserState, denoise_pair
 from ..device import resolve_device
@@ -39,14 +38,17 @@ from ..restir.gi import GiReservoirs
 from ..restir.primary import Reprojection, build_reprojection_map, primary_pass
 from ..restir.reservoir import DiReservoirs
 from ..scene.types import Scene
-from ..sky.atmosphere import luts_for
+from ..sky.atmosphere import luts_for, sample_atmosphere, sample_sky, sun_direction
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static pipeline configuration: DI + GI + SVGF, no sky radiance
-    on miss pixels (the JAX package's defaults)."""
+    """Static pipeline configuration: DI + GI + SVGF (the JAX package's
+    defaults; its ``mode``, ``denoise``, ``needs_di`` and ``needs_gi``
+    switches are not ported)."""
 
+    #: evaluate the atmosphere for miss pixels
+    include_sky: bool = False
     #: take trace_closest + surface_at (use_pallas=False), the route
     #: gradients flow through, instead of the fused surface kernel
     differentiable: bool = False
@@ -102,7 +104,8 @@ def render_frame(scene: Scene, camera: Camera, state: RenderState, seed: int,
     frame = int(state.frame)
     seed = int(seed)
     surf, reproj, sky, bn_first, bn_second = _stage_prelude(
-        scene, camera, state.prev_camera, state.prev_surface, frame, use_pallas
+        scene, camera, state.prev_camera, state.prev_surface, frame, luts, config.include_sky,
+        use_pallas,
     )
     di_rhs, gi_rep, rhs_surf = _stage_history(
         camera, reproj, state.di_prev, state.gi_prev, state.prev_surface
@@ -133,14 +136,20 @@ def render_frame_fused(scene, camera, state, seed, config=RenderConfig(), luts=N
     return render_frame(scene, camera, state, seed, config, luts)
 
 
-def _stage_prelude(scene, camera, prev_camera, prev_surface, frame, use_pallas=None):
-    """G-buffer + reprojection map + miss-pixel sky (zero: the sky is
-    off) + blue noise."""
+def _stage_prelude(scene, camera, prev_camera, prev_surface, frame, luts=None,
+                   include_sky=False, use_pallas=None):
+    """G-buffer + reprojection map + miss-pixel sky (through ``luts`` when
+    given, else the analytic march; zero with the sky off) + blue noise."""
     h, w = camera.height, camera.width
     dev = camera.device
     surf, velocity = primary_pass(scene, camera, prev_camera, use_pallas)
     reproj = build_reprojection_map(camera, surf, prev_surface, velocity)
-    sky = torch.zeros((h, w, 3), device=dev)
+    if include_sky:
+        sun = sun_direction(scene.sun_azimuth, scene.sun_altitude, device=dev)
+        _, prim_d = pixel_rays(camera, screen_grid(camera))
+        sky = sample_atmosphere(luts, sun, prim_d) if luts is not None else sample_sky(sun, prim_d)
+    else:
+        sky = torch.zeros((h, w, 3), device=dev)
     bn1x, bn1y, bn2x, bn2y = bluenoise.sample_pair_screen(h, w, frame, dev)
     return (surf, reproj, sky, torch.stack([bn1x, bn1y], -1), torch.stack([bn2x, bn2y], -1))
 

@@ -1,8 +1,8 @@
 """Hit records and surface attributes (port of strolle_tpu/ops/hit.py).
 
-Only untextured materials are ported: a scene with an atlas is refused
-before it reaches this module, so every material channel is its
-multiplier.
+Material channels are sampled from the scene's texture atlas where a
+material textures them (``ops/texture.py``); a channel that no material
+textures (``Materials.tex_channels``) skips the fetch.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from ..scene.types import Scene
 from . import math as vm
+from .texture import sample_material_channel
 
 #: Self-intersection nudge along the shading normal.
 NUDGE_OFFSET = 0.01
@@ -68,6 +69,34 @@ class Surface:
         )
 
 
+def material_at(scene: Scene, mat_id: torch.Tensor, uv: torch.Tensor, regularize: bool):
+    """The material of ``mat_id`` [...] at texture coordinates ``uv``
+    [..., 2]: (base_color [..., 4], emissive [..., 3], metallic,
+    roughness, reflectance). The metallic-roughness texel's G scales
+    roughness and its B metallic; ``regularize`` clamps roughness to
+    >= 0.5625 for indirect bounces."""
+    mats = scene.materials
+    tex_base, tex_emis, tex_mr = mats.tex_channels
+    base_color = sample_material_channel(
+        scene, mats.base_color[mat_id], mats.base_color_tex[mat_id], uv, enabled=tex_base
+    )
+    emissive = sample_material_channel(
+        scene, mats.emissive[mat_id], mats.emissive_tex[mat_id], uv, enabled=tex_emis
+    )[..., :3]
+    rough_f = mats.roughness[mat_id]
+    metal_f = mats.metallic[mat_id]
+    if tex_mr and scene.atlas is not None:
+        one = torch.ones_like(rough_f)
+        mr = sample_material_channel(
+            scene, torch.stack([one, rough_f, metal_f, one], dim=-1),
+            mats.metallic_roughness_tex[mat_id], uv,
+        )
+        rough_f, metal_f = mr[..., 1], mr[..., 2]
+    if regularize:
+        rough_f = torch.clamp(rough_f, min=0.75 * 0.75)
+    return base_color, emissive, metal_f, rough_f, mats.reflectance[mat_id]
+
+
 def surface_at(
     scene: Scene,
     o: torch.Tensor,
@@ -79,12 +108,7 @@ def surface_at(
     attributes; the normal is flipped to face against the ray by the
     sign of the Möller-Trumbore determinant. ``regularize`` clamps
     roughness for indirect bounces (roughness >= 0.5625)."""
-    if scene.atlas is not None:
-        raise NotImplementedError(
-            "textured materials (atlas sampling) are ported in slice 3"
-        )
     geom = scene.geometry
-    mats = scene.materials
     tri = torch.clamp(hit.tri, min=0).long()
 
     p = geom.positions[tri]  # [..., 3, 3]
@@ -103,13 +127,9 @@ def surface_at(
     normal = normal * vm.copysign1(det)[..., None]
 
     uv = w * uvs[..., 0, :] + u * uvs[..., 1, :] + v * uvs[..., 2, :]
-
-    base_color = mats.base_color[mat_id]
-    emissive = mats.emissive[mat_id][..., :3]
-    roughness = mats.roughness[mat_id]
-    metallic = mats.metallic[mat_id]
-    if regularize:
-        roughness = torch.clamp(roughness, min=0.75 * 0.75)
+    base_color, emissive, metallic, roughness, reflectance = material_at(
+        scene, mat_id, uv, regularize
+    )
 
     some = hit.is_some
     t0 = torch.where(some, hit.t, 0.0)
@@ -129,7 +149,7 @@ def surface_at(
         emissive=z(emissive),
         metallic=z(metallic),
         roughness=z(roughness),
-        reflectance=z(mats.reflectance[mat_id]),
+        reflectance=z(reflectance),
         depth=t0,
         is_some=some,
     )

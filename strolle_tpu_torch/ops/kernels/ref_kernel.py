@@ -432,7 +432,7 @@ def trace_sample_megakernel(
     if tri_rows.shape[0] > MAX_TRIS:
         raise NotImplementedError(
             f"{name}: {tri_rows.shape[0]} triangles > {MAX_TRIS}; big scenes "
-            "take the staged stream kernels, ported in slice 3"
+            "take the staged loop (use_megakernel=False) through the stream kernels"
         )
     if o.shape != d.shape or o.shape[-1] != 3 or state0.shape != o.shape[:-1]:
         raise ValueError(f"{name}: o/d must be [..., 3] and state0 [...]")

@@ -1,0 +1,312 @@
+"""Big-scene closest-hit and any-hit over BVH-ordered clusters (port of
+strolle_tpu/ops/pallas/stream_kernels.py: ``stream_trace_surface_pallas``
+and ``stream_trace_anyhit_pallas``, with the cluster host code of
+strolle_tpu/ops/pallas/cluster_kernels.py).
+
+Geometry in BVH order is cut into clusters of CLUSTER_TRIS consecutive
+triangles, each cut again into SUB sub-blocks of SUB_TRIS. A ray walks
+the clusters in index order: it slab-tests each cluster's box against
+its current best t, then each sub-block box of an entered cluster, and
+runs Möller-Trumbore over the rows of each entered sub-block. Closest
+hit (kernel 5) starts its best t at the ray's exit from the scene box
+(``scene_tcap``) and keeps a hit on strict ``<``, so ties go to the
+lowest row; any-hit (kernel 6) tests against ``min(t_max, scene_tcap)``
+and stops at its first hit. Rays that miss the scene box, zero-length
+rays and rays with nothing left to test leave at once.
+
+The TPU kernels reach the same answer through per-tile cull lists,
+double-buffered row DMA and (32, 128) ray tiles; those are its tiling
+and have no counterpart here. The CUDA kernels (``csrc/stream_kernels.cu``)
+run one thread per ray; each wrapper below runs its plain PyTorch
+version for CPU tensors and launches the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..intersect import ray_triangle_edges
+from . import cuda_lib
+
+#: Triangles per cluster (a uniform partition of the BVH-ordered rows).
+CLUSTER_TRIS = 256
+#: Sub-blocks per cluster, and triangles per sub-block.
+SUB = 8
+SUB_TRIS = CLUSTER_TRIS // SUB
+#: Triangle row width (``trace_kernels.pack_geometry``); the walk reads
+#: v0, e1, e2 (columns 0:9).
+ROW_WIDTH = 28
+#: The scene-box cap's scale and offset, as the float32 values the JAX
+#: package multiplies and adds.
+_CAP_SCALE = float(np.float32(1.0001))
+_CAP_OFFSET = float(np.float32(1e-4))
+
+
+def num_clusters(num_tris: int) -> int:
+    return -(-max(num_tris, 1) // CLUSTER_TRIS)
+
+
+def clusterize_bvh(bvh, num_tris: int, positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Geometry in BVH order -> [K, 8] rows: bmin(3) bmax(3) first count.
+
+    Cluster k covers rows [k*CLUSTER_TRIS, (k+1)*CLUSTER_TRIS); the rows
+    past the last triangle replicate it, so the last box stays tight.
+    ``positions`` [T, 3, 3] are required: the JAX package's fallback to
+    the BVH's leaf boxes is not ported."""
+    if positions is None:
+        raise NotImplementedError(
+            "clusterize_bvh from the BVH's leaf boxes alone is not ported; pass positions"
+        )
+    k = num_clusters(num_tris)
+    t = positions.shape[0]
+    v = positions.reshape(t, 9)
+    pad = k * CLUSTER_TRIS - t
+    if pad:
+        v = torch.cat([v, v[-1:].expand(pad, 9)])
+    v = v.reshape(k, CLUSTER_TRIS, 3, 3)
+    firsts = torch.arange(k, dtype=torch.int32, device=positions.device) * CLUSTER_TRIS
+    counts = torch.clamp(num_tris - firsts, max=CLUSTER_TRIS)
+    return torch.cat(
+        [
+            v.amin(dim=(1, 2)),
+            v.amax(dim=(1, 2)),
+            firsts.to(torch.float32)[:, None],
+            counts.to(torch.float32)[:, None],
+        ],
+        dim=-1,
+    )
+
+
+def sub_aabbs(clus_rows: torch.Tensor, geom_rows: torch.Tensor) -> torch.Tensor:
+    """[K*SUB, 8] sub-block boxes (lo3 hi3 pad2) of the [T', 28] rows.
+    Rows past T' replicate the last row's box, as the JAX package does."""
+    k = clus_rows.shape[0]
+    need = k * CLUSTER_TRIS
+    v0 = geom_rows[:, 0:3]
+    p1 = v0 + geom_rows[:, 3:6]
+    p2 = v0 + geom_rows[:, 6:9]
+    lo = torch.minimum(v0, torch.minimum(p1, p2))
+    hi = torch.maximum(v0, torch.maximum(p1, p2))
+    t = geom_rows.shape[0]
+    if t < need:
+        lo = torch.cat([lo, lo[-1:].expand(need - t, 3)])
+        hi = torch.cat([hi, hi[-1:].expand(need - t, 3)])
+    lo = lo[:need].reshape(k * SUB, SUB_TRIS, 3).amin(dim=1)
+    hi = hi[:need].reshape(k * SUB, SUB_TRIS, 3).amax(dim=1)
+    return torch.cat([lo, hi, lo.new_zeros((k * SUB, 2))], dim=-1)
+
+
+def inv_dirs(d: torch.Tensor) -> torch.Tensor:
+    """1 / d per component, with |d| < 1e-20 replaced by +-1e-20."""
+    tiny = 1e-20
+    return 1.0 / torch.where(torch.abs(d) < tiny, torch.where(d >= 0, tiny, -tiny), d)
+
+
+def _slab(box: torch.Tensor, o: torch.Tensor, inv: torch.Tensor, best: torch.Tensor):
+    """Slab test of rays [R, 3] against one box row [8]: the ray enters
+    the box before ``best`` [R] (tn <= tf, tf >= 0, tn <= best)."""
+    t0 = (box[0:3] - o) * inv
+    t1 = (box[3:6] - o) * inv
+    tn = torch.minimum(t0, t1).amax(dim=-1)
+    tf = torch.maximum(t0, t1).amin(dim=-1)
+    return (tn <= tf) & (tf >= 0.0) & (tn <= best)
+
+
+def scene_tcap(clus_rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Each ray's exit distance from the scene box (the union of the
+    cluster boxes) times 1.0001 plus 1e-4, or 0 for a ray that misses it.
+    No triangle lies beyond it. The scale and offset round once, as one
+    fused multiply-add (formed in float64, as ``intersect.fma``), the way
+    XLA compiles the JAX package's."""
+    lo = clus_rows[:, 0:3].amin(dim=0)
+    hi = clus_rows[:, 3:6].amax(dim=0)
+    inv = inv_dirs(d)
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tn = torch.minimum(t0, t1).amax(dim=-1)
+    tf = torch.maximum(t0, t1).amin(dim=-1)
+    miss = (tn > tf) | (tf < 0.0)
+    return torch.where(miss, 0.0, (tf.double() * _CAP_SCALE + _CAP_OFFSET).float())
+
+
+def _walk(clus_rows, sub_rows, geom_rows, o, d, best, work, on_subblock):
+    """The index-order walk shared by both plain versions. ``best`` [R]
+    is the slab tests' bound, updated in place by ``on_subblock(ids,
+    first_row, rows)``, which returns the rays that leave the walk.
+    ``work`` [R, 2] (optional) counts box tests and triangle tests."""
+    inv = inv_dirs(d)
+    live = ((best > 0.0) & (d != 0.0).any(dim=-1)).nonzero()[:, 0]
+    n_rows = geom_rows.shape[0]
+    for k in range(clus_rows.shape[0]):
+        if live.numel() == 0:
+            break
+        if work is not None:
+            work[live, 0] += 1
+        ids = live[_slab(clus_rows[k], o[live], inv[live], best[live])]
+        for s in range(SUB):
+            if ids.numel() == 0:
+                break
+            if work is not None:
+                work[ids, 0] += 1
+            ids2 = ids[_slab(sub_rows[k * SUB + s], o[ids], inv[ids], best[ids])]
+            first = k * CLUSTER_TRIS + s * SUB_TRIS
+            if ids2.numel() == 0 or first >= n_rows:
+                continue
+            done = on_subblock(ids2, first, geom_rows[first : first + SUB_TRIS])
+            if done is not None and done.numel():
+                ids = ids[~torch.isin(ids, done)]
+                live = live[~torch.isin(live, done)]
+
+
+def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=None):
+    """Plain version of kernel 5: (t, tri, u, v) over o's batch shape.
+    t starts at ``tcap`` and stays there on a miss; tri = -1 on a miss.
+    ``work`` [R, 2] int32 (optional) accumulates each ray's box tests and
+    triangle tests."""
+    batch = o.shape[:-1]
+    of = o.reshape(-1, 3)
+    df = d.reshape(-1, 3)
+    best = tcap.reshape(-1).clone()
+    btri = torch.full_like(best, -1, dtype=torch.int32)
+    bu = torch.zeros_like(best)
+    bv = torch.zeros_like(best)
+
+    def on_subblock(ids, first, rows):
+        if work is not None:
+            work[ids, 1] += rows.shape[0]
+        t, u, v, _ = ray_triangle_edges(
+            of[ids, None], df[ids, None], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        )
+        j = torch.argmin(t, dim=-1, keepdim=True)
+        tj = t.gather(-1, j)[:, 0]
+        better = tj < best[ids]
+        w = ids[better]
+        best[w] = tj[better]
+        btri[w] = (first + j[better, 0]).to(torch.int32)
+        bu[w] = u.gather(-1, j)[better, 0]
+        bv[w] = v.gather(-1, j)[better, 0]
+        return None
+
+    _walk(clus_rows, sub_rows, geom_rows, of, df, best, work, on_subblock)
+    return best.reshape(batch), btri.reshape(batch), bu.reshape(batch), bv.reshape(batch)
+
+
+def stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, t_max, work=None):
+    """Plain version of kernel 6: True where a row is hit at t < t_max.
+    ``t_max`` is already clipped to the scene-box exit
+    (``clipped_t_max``). ``work`` as in the closest-hit version; a ray
+    stops counting at its first hit."""
+    batch = o.shape[:-1]
+    of = o.reshape(-1, 3)
+    df = d.reshape(-1, 3)
+    tm = t_max.reshape(-1)
+    occ = torch.zeros(tm.shape, dtype=torch.bool, device=tm.device)
+
+    def on_subblock(ids, first, rows):
+        t = ray_triangle_edges(
+            of[ids, None], df[ids, None], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        )[0]
+        hit = t < tm[ids, None]
+        any_hit = hit.any(dim=-1)
+        if work is not None:
+            tested = torch.where(any_hit, hit.to(torch.int32).argmax(dim=-1) + 1, rows.shape[0])
+            work[ids, 1] += tested.to(torch.int32)
+        done = ids[any_hit]
+        occ[done] = True
+        return done
+
+    _walk(clus_rows, sub_rows, geom_rows, of, df, tm, work, on_subblock)
+    return occ.reshape(batch)
+
+
+def clipped_t_max(clus_rows, o, d, t_max) -> torch.Tensor:
+    """min(t_max, scene_tcap): no occluder lies past the scene box, and
+    a ray that misses the box gets 0, so it tests nothing."""
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
+                               o.shape[:-1])
+    return torch.minimum(t_max, scene_tcap(clus_rows, o, d)).contiguous()
+
+
+def _check_inputs(name, clus_rows, geom_rows, o, d):
+    if clus_rows.ndim != 2 or clus_rows.shape[1] != 8:
+        raise ValueError(f"{name}: cluster rows must be [K, 8], got {tuple(clus_rows.shape)}")
+    if geom_rows.ndim != 2 or geom_rows.shape[1] != ROW_WIDTH:
+        raise ValueError(f"{name}: rows must be [T, {ROW_WIDTH}], got {tuple(geom_rows.shape)}")
+    if geom_rows.shape[0] > clus_rows.shape[0] * CLUSTER_TRIS:
+        raise ValueError(f"{name}: {geom_rows.shape[0]} rows > {clus_rows.shape[0]} clusters")
+    if o.shape != d.shape or o.shape[-1] != 3:
+        raise ValueError(f"{name}: o/d must be [..., 3] of one shape")
+    for t in (clus_rows, geom_rows, o, d):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {o.device}")
+
+
+def _launch(entry: str, clus_rows, sub_rows, geom_rows, o, d, ray_arg, outs, work):
+    """One launch of a stream kernel on the CUDA tensors given."""
+    if o.device.type != "cuda":
+        raise ValueError(f"{entry}: the kernel takes CUDA tensors, got {o.device}")
+    n = o.numel() // 3
+    if work is not None and (work.dtype != torch.int32 or tuple(work.shape) != (n, 2)):
+        raise ValueError(f"{entry}: work must be int32 [{n}, 2]")
+    cuda_lib.check_tensors(entry, clus_rows, sub_rows, geom_rows, o, d, ray_arg, *outs,
+                           *(() if work is None else (work,)))
+    lib = cuda_lib.library()
+    if n == 0:
+        return
+    dev = o.device
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            clus_rows.data_ptr(), sub_rows.data_ptr(), clus_rows.shape[0],
+            geom_rows.data_ptr(), geom_rows.shape[0],
+            o.data_ptr(), d.data_ptr(), ray_arg.data_ptr(), n,
+            *(x.data_ptr() for x in outs),
+            None if work is None else work.data_ptr(),
+            cuda_lib.stream(dev),
+        )
+    cuda_lib.check(entry, err)
+
+
+def stream_trace_surface(clus_rows, geom_rows, o, d, work=None) -> dict:
+    """Closest hit of rays o/d [..., 3] over the clustered [T', 28] rows:
+    {t, hit, u, v, tri} over o's batch shape, as the JAX package returns
+    them (t is the scene-box cap on a miss; tri = -1 there). CPU tensors
+    run the plain version; CUDA tensors launch kernel 5. ``work`` [R, 2]
+    int32 (optional) receives each ray's box and triangle tests, from
+    the kernel's counting variant on the card."""
+    _check_inputs("stream_trace_surface", clus_rows, geom_rows, o, d)
+    sub_rows = sub_aabbs(clus_rows, geom_rows).contiguous()
+    tcap = scene_tcap(clus_rows, o, d).contiguous()
+    if o.device.type == "cpu":
+        t, tri, u, v = stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap,
+                                                  work)
+    else:
+        batch = o.shape[:-1]
+        t = torch.empty(batch, dtype=torch.float32, device=o.device)
+        tri = torch.empty(batch, dtype=torch.int32, device=o.device)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        _launch("strolle_stream_trace_surface", clus_rows, sub_rows, geom_rows, o, d, tcap,
+                (t, tri, u, v), work)
+        cuda_lib.count_launch("stream_trace_surface")
+    hit = tri >= 0
+    return {"t": t, "hit": hit, "u": u, "v": v, "tri": torch.where(hit, tri, -1)}
+
+
+def stream_trace_anyhit(clus_rows, geom_rows, o, d, t_max, work=None) -> torch.Tensor:
+    """Occlusion flag of rays o/d [..., 3] over the clustered rows: True
+    where a triangle is hit before min(t_max, scene-box exit). CPU tensors
+    run the plain version; CUDA tensors launch kernel 6. ``work`` as in
+    ``stream_trace_surface``."""
+    _check_inputs("stream_trace_anyhit", clus_rows, geom_rows, o, d)
+    sub_rows = sub_aabbs(clus_rows, geom_rows).contiguous()
+    tm = clipped_t_max(clus_rows, o, d, t_max)
+    if o.device.type == "cpu":
+        return stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, tm, work)
+    occ = torch.empty(o.shape[:-1], dtype=torch.bool, device=o.device)
+    _launch("strolle_stream_trace_anyhit", clus_rows, sub_rows, geom_rows, o, d, tm, (occ,),
+            work)
+    cuda_lib.count_launch("stream_trace_anyhit")
+    return occ

@@ -125,7 +125,7 @@ def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tenso
     if rows.shape[0] > MAX_TRIS:
         raise NotImplementedError(
             f"{name}: {rows.shape[0]} triangles > {MAX_TRIS}; big scenes take "
-            "the stream kernels, ported in slice 3"
+            "the stream kernels (stream_kernels.py)"
         )
     if o.shape != d.shape or o.shape[-1] != 3:
         raise ValueError(f"{name}: o/d must be [..., 3] of one shape")

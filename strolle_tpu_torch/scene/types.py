@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.texture import packed_corner_matrix
 
 LIGHT_NONE = 0
 LIGHT_POINT = 1
@@ -95,14 +96,34 @@ class Lights:
 
 
 @dataclasses.dataclass(frozen=True)
+class Atlas:
+    """One texture atlas: the linear-colour image and its RGBA8-packed
+    four-corner table (``ops/texture.packed_corner_matrix``), built once
+    per scene rather than once per texture fetch. Make it with
+    ``make_atlas``."""
+
+    image: torch.Tensor  # f32[A, A, 4], linear colour
+    corners: torch.Tensor  # i32[A*A, 4], RGBA8 bit patterns
+
+
+def make_atlas(image) -> Atlas:
+    image = torch.as_tensor(image, dtype=torch.float32)
+    return Atlas(image=image, corners=packed_corner_matrix(image))
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     geometry: Geometry
     materials: Materials
     lights: Lights
-    #: Texture atlas; only ``None`` is supported by this port so far.
-    atlas: Optional[torch.Tensor]
+    atlas: Optional[Atlas]
     sun_azimuth: float
     sun_altitude: float
+    #: Flattened BVH (``bvh.scene_with_bvh``), None until built.
+    bvh: Optional["object"] = None
+    #: Cluster boxes [K, 8] of the big-scene kernels, built with the BVH
+    #: (``bvh.build_clusters``); None for scenes of up to 1024 triangles.
+    clusters: Optional[torch.Tensor] = None
     has_alpha: bool = False
     flat_normals: bool = False
     has_metal: bool = True

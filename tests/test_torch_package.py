@@ -1,5 +1,7 @@
 """The port's package boundaries: no JAX inside it, the card by default,
-and a loud refusal of the paths that later slices port."""
+and a loud refusal of the paths that later slices port (the alpha
+restart loop, the torch BVH traversal, the non-default big-scene
+strategies)."""
 
 import ast
 from pathlib import Path
@@ -15,6 +17,7 @@ from strolle_tpu_torch.models.restir import init_state
 from strolle_tpu_torch.ops.kernels import ref_kernel, trace_kernels
 from strolle_tpu_torch.ops.trace import trace_surface
 from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+from strolle_tpu_torch.scene.demo import dungeon, dungeon_camera
 from strolle_tpu_torch.scene.types import make_lights, make_materials
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,27 +52,45 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
         lambda: make_materials([{}]),
         lambda: make_lights([{}]),
         lambda: init_state(cornell_camera(8, 8, device="cpu")),
+        lambda: dungeon(),
+        lambda: dungeon_camera(8, 8),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
+    from strolle_tpu_torch.ops import trace as trace_mod
+    from strolle_tpu_torch.scene.types import Geometry
+
     scene = cornell_box(device="cpu")
     cam = cornell_camera(4, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="sky"):
-        trace_sample(scene, cam, 1, depth=1, include_sky=True)
-    for bad in (scene.replace(has_alpha=True), scene.replace(atlas=torch.zeros(4, 4, 4))):
+    with pytest.raises(ValueError, match="megakernel"):
+        trace_sample(scene, cam, 1, depth=1, include_sky=True, use_megakernel=True)
+    # a big scene without the clusters of bvh.scene_with_bvh (the torch
+    # BVH traversal is not ported), and the alpha restart loop
+    g = scene.geometry
+    big = scene.replace(geometry=Geometry(
+        *(torch.cat([getattr(g, f)] * 29) for f in ("positions", "normals", "uvs", "tangents",
+                                                    "material_id"))))
+    assert big.geometry.num_triangles > 1024
+    for bad, match in ((big, "1024"), (scene.replace(has_alpha=True), "alpha")):
         for mk in (None, False):
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(NotImplementedError, match=match):
                 trace_sample(bad, cam, 1, depth=1, include_sky=False, use_megakernel=mk)
     o = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="1024"):
         trace_kernels.trace_closest_brute(torch.zeros(1032, 12), o, o)
     for use_pallas in (None, True, False):
-        for bad in (scene.replace(has_alpha=True), scene.replace(atlas=torch.zeros(4, 4, 4))):
+        for bad in (big, scene.replace(has_alpha=True)):
             with pytest.raises(NotImplementedError):
                 trace_surface(bad, o, o, use_pallas=use_pallas)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        trace_mod.trace_rows_sharded(None)
+    # the JAX package's non-default big-scene strategies
+    monkeypatch.setattr(trace_mod, "BIG_SCENE_STRATEGY", "cluster")
+    with pytest.raises(NotImplementedError, match="cluster"):
+        trace_surface(big.replace(clusters=torch.zeros(5, 8)), o, o)
     with pytest.raises(NotImplementedError, match="1024"):
         ref_kernel.trace_sample_megakernel(
             torch.zeros(1032, 24), torch.zeros(1, 12), torch.zeros(1, 13), 1,

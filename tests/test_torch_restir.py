@@ -129,7 +129,8 @@ def test_realtime_stages_match_jax():
 
         jpre = jr._stage_prelude(jscene, jcam, js.prev_camera, js.prev_surface, js.frame,
                                  jluts, False, None, None)
-        pre = tr._stage_prelude(scene, cam, state.prev_camera, state.prev_surface, f, False)
+        pre = tr._stage_prelude(scene, cam, state.prev_camera, state.prev_surface, f, luts,
+                                False, False)
         # rays from the port's own pixel_rays: a primary ray that meets
         # a shared diagonal may pick the other triangle
         same_tri = pre[0].tri.numpy() == np.asarray(jpre[0].tri)

@@ -1,0 +1,146 @@
+"""Kernels 5 and 6 (ops/kernels/stream_kernels.py): the cluster host code
+and the plain versions against the JAX package's stream kernels in
+interpret mode and its brute-force trace, on a soup of
+CLUSTER_TRIS*3+57 triangles (four clusters, the last one ragged)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch_port_arrays  # noqa: F401  (one torch thread per test process)
+
+from strolle_tpu.ops.pallas import stream_kernels as jsk
+from strolle_tpu.ops.pallas.cluster_kernels import CLUSTER_TRIS, clusterize_bvh
+from strolle_tpu.ops.trace import trace_anyhit_brute, trace_closest_brute
+from strolle_tpu_torch.ops.kernels import cuda_lib
+from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+from tests.test_bvh_kernels import _packed, _rays, _soup_scene
+
+#: Rays whose tri may differ from the JAX package's: an exact-t tie between
+#: two triangles (a shared edge) goes to the lowest row here and to the
+#: first row the TPU's front-to-back walk meets there.
+MAX_TRI_FLIPS = 0.01
+ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def soup():
+    js = _soup_scene(n_tris=CLUSTER_TRIS * 3 + 57)
+    _, rows = _packed(js)
+    n = js.geometry.num_triangles
+    jclus = clusterize_bvh(js.bvh, n, jnp.asarray(js.geometry.positions))
+    clus = sk.clusterize_bvh(None, n, torch.tensor(np.asarray(js.geometry.positions)))
+    return js, jclus, rows, clus, torch.tensor(np.asarray(rows))
+
+
+def _ray_set(name):
+    """Seeded rays: from all around the soup, or from inside it (most hit)."""
+    if name == "around":
+        return _rays(640, seed=1)
+    o, d = _rays(640, seed=2, spread=3.0)
+    return o.reshape(20, 32, 3), d.reshape(20, 32, 3)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def test_cluster_host_code_matches_jax(soup):
+    js, jclus, rows, clus, trows = soup
+    assert clus.shape == (4, 8)
+    np.testing.assert_array_equal(clus.numpy(), np.asarray(jclus))
+    np.testing.assert_array_equal(sk.sub_aabbs(clus, trows).numpy(),
+                                  np.asarray(jsk.sub_aabbs(jclus, rows)))
+    for name in ("around", "inside"):
+        o, d = (x.reshape(-1, 3) for x in _ray_set(name))
+        # jitted, as inside the JAX package's kernel wrappers, where XLA
+        # fuses the cap's scale and offset into one multiply-add
+        want = jax.jit(jsk.scene_tcap)(jclus, tuple(o[:, i] for i in range(3)),
+                                       tuple(d[:, i] for i in range(3)))
+        np.testing.assert_array_equal(sk.scene_tcap(clus, _t(o), _t(d)).numpy(),
+                                      np.asarray(want))
+
+
+@pytest.mark.parametrize("rays", ["around", "inside"])
+def test_closest_plain_matches_jax(soup, rays):
+    js, jclus, rows, clus, trows = soup
+    o, d = _ray_set(rays)
+    work = torch.zeros((o.size // 3, 2), dtype=torch.int32)
+    got = sk.stream_trace_surface(clus, trows, _t(o), _t(d), work=work)
+    want = jsk.stream_trace_surface_pallas(jclus, rows, o, d, interpret=True)
+    brute = trace_closest_brute(js, o.reshape(-1, 3), d.reshape(-1, 3))
+    hit = got["hit"].numpy()
+    assert 0.05 < hit.mean() < 0.95
+    np.testing.assert_array_equal(hit, np.asarray(want["hit"]))
+    np.testing.assert_array_equal(hit.reshape(-1), np.asarray(brute.is_some))
+    tri = got["tri"].numpy()
+    for other in (np.asarray(want["tri"]), np.asarray(brute.tri).reshape(tri.shape)):
+        same = tri == other
+        assert 1.0 - same.mean() <= MAX_TRI_FLIPS, 1.0 - same.mean()
+    # t/u/v where tri agrees; t on a miss is the scene-box cap in both
+    same = tri == np.asarray(want["tri"])
+    for k in ("t", "u", "v"):
+        np.testing.assert_allclose(got[k].numpy()[same], np.asarray(want[k])[same],
+                                   rtol=1e-5, atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(got["t"].numpy()[hit], np.asarray(brute.t).reshape(hit.shape)[hit],
+                               rtol=1e-5, atol=ATOL)
+    # a ray inside the scene box tests all 4 cluster boxes, entered
+    # clusters add 8 sub-block tests and entered sub-blocks up to 32
+    # triangle tests; a ray that misses the box tests nothing
+    w = work.numpy()
+    live = sk.scene_tcap(clus, _t(o), _t(d)).numpy().reshape(-1) > 0
+    assert (w[~live] == 0).all() and (w[live, 0] >= 4).all()
+    assert ((w[live, 0] - 4) % 8 == 0).all()
+    assert (w[live, 1] <= (w[live, 0] - 4) // 8 * 8 * 32).all()
+
+
+@pytest.mark.parametrize("t_max", [2.5, 0.0, np.inf])
+@pytest.mark.parametrize("rays", ["around", "inside"])
+def test_anyhit_plain_matches_jax(soup, rays, t_max):
+    js, jclus, rows, clus, trows = soup
+    o, d = _ray_set(rays)
+    tm = np.full(o.shape[:-1], t_max, np.float32)
+    got = sk.stream_trace_anyhit(clus, trows, _t(o), _t(d), _t(tm)).numpy()
+    want = np.asarray(jsk.stream_trace_anyhit_pallas(jclus, rows, o, d, jnp.asarray(tm),
+                                                     interpret=True))
+    np.testing.assert_array_equal(got, want)
+    brute = np.asarray(trace_anyhit_brute(js, o.reshape(-1, 3), d.reshape(-1, 3),
+                                          jnp.asarray(tm.reshape(-1))))
+    np.testing.assert_array_equal(got.reshape(-1), brute)
+    if t_max == 0.0:
+        assert not got.any()
+    else:
+        assert 0.0 < got.mean() < 1.0
+
+
+def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
+    """The wrappers run the plain versions on CPU tensors without touching
+    the CUDA library or the launch counts; the launch path refuses CPU
+    tensors."""
+    _, _, _, clus, trows = soup
+    o, d = (_t(x) for x in _rays(8, seed=3))
+
+    def no_library():
+        raise AssertionError("the CUDA library was loaded for CPU tensors")
+
+    monkeypatch.setattr(cuda_lib, "library", no_library)
+    cuda_lib.reset_launch_counts()
+    sk.stream_trace_surface(clus, trows, o, d)
+    sk.stream_trace_anyhit(clus, trows, o, d, torch.full((8,), 2.0))
+    assert cuda_lib.LAUNCHES == {}
+    subs = sk.sub_aabbs(clus, trows)
+    for entry, ray_arg, outs in (
+        ("strolle_stream_trace_surface", sk.scene_tcap(clus, o, d),
+         (torch.empty(8), torch.empty(8, dtype=torch.int32), torch.empty(8), torch.empty(8))),
+        ("strolle_stream_trace_anyhit", torch.full((8,), 2.0),
+         (torch.empty(8, dtype=torch.bool),)),
+    ):
+        with pytest.raises(ValueError, match="CUDA"):
+            sk._launch(entry, clus, subs, trows, o, d, ray_arg, outs, None)
+    with pytest.raises(ValueError, match=r"\[K, 8\]"):
+        sk.stream_trace_surface(torch.zeros(4, 6), trows, o, d)
+    with pytest.raises(ValueError, match="clusters"):
+        sk.stream_trace_surface(clus[:2], trows, o, d)
+    with pytest.raises(NotImplementedError):
+        sk.clusterize_bvh(None, 10)

@@ -33,7 +33,9 @@ def scene_arrays(jscene) -> dict:
     """A JAX Scene as convert.scene_from_arrays takes it."""
     out = {k: np_tree(getattr(jscene, k)) for k in ("geometry", "materials", "lights")}
     out["materials"]["tex_channels"] = jscene.materials.tex_channels
-    out["atlas"] = None
+    out["atlas"] = None if jscene.atlas is None else np.asarray(jscene.atlas.image)
+    out["bvh"] = None if jscene.bvh is None else np_tree(jscene.bvh)
+    out["clusters"] = None if jscene.clusters is None else np.asarray(jscene.clusters)
     for k in ("sun_azimuth", "sun_altitude", "has_alpha", "flat_normals", "has_metal"):
         out[k] = getattr(jscene, k)
     return out
