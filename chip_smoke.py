@@ -12,8 +12,12 @@ Run from the root of the repository:  python3 chip_smoke.py
    rays of Cornell and of smooth-normal Cornell.
 3. Drives the reference-mode path with every launch count set to 0:
    trace_sample on Cornell at 800x608 depth 4 and at 256x256 depth 3
-   (megakernel), render_reference for 8 frames, and the staged loop
-   (kernels A and B), held against the megakernel; then reads the counts.
+   (megakernel), render_reference for 8 frames, and the staged loop's
+   gradient route (use_pallas=False: kernels A and B), held against the
+   megakernel; then reads the counts. Then, counted anew, the staged
+   loop's default route (use_pallas=None, as the JAX package's loop):
+   kernel 4 for every surface, kernel A never, with use_megakernel=False
+   and with the sky.
 4. Drives the realtime ReSTIR DI+GI + SVGF frame (render_frame_fused,
    RenderConfig()) on Cornell at 800x608 for three 6-frame GI cycles,
    with the counts set to 0 before and read after: kernel 4 and kernel B
@@ -32,9 +36,20 @@ Run from the root of the repository:  python3 chip_smoke.py
    launch as the bounce loop, the GI schedule and the checkerboard
    compaction say, kernels A, B, C and 4 never; the realtime mean image
    of frames 6-17 is within 15% of a 64-sample depth-1 sky reference.
+   Then holds kernels 8-11 (the cluster and BVH kernels) against their
+   plain versions on the same ray sets, with their test counts, and
+   kernel 10's triangles against the torch BVH traversal; drives both
+   modes again under BIG_SCENE_STRATEGY "cluster" (kernels 8 and 9 only)
+   and "packet" (kernels 10 and 11 only), counted the same way, with the
+   same realtime check and the share of primary triangles that differ
+   from the "stream" route's; times trace_closest under "packet" (the
+   torch BVH traversal).
 6. Times each kernel and its plain version with CUDA events, the
-   reference-mode paths in ms/frame and Mrays/s, and both realtime
-   frames in ms/frame, per stage, and under the profiler.
+   reference-mode paths in ms/frame and Mrays/s, and the realtime frames
+   in ms/frame, per stage, and under the profiler. A walking kernel's
+   bound (5, 6, 8-11) counts the fewest box and triangle tests that any
+   of the walks counted here makes on the same rays; its own walk's
+   count gives walk_bound_ms beside it.
 
 Prints a "kernels" JSON line and, last, {"ok": true, "device": ...}.
 Any failed check raises: the script then exits non-zero and prints no
@@ -44,6 +59,7 @@ not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -422,6 +438,7 @@ def stream_inputs(scene, o, d, t_max=None) -> dict:
 def stream_launch(x: dict, anyhit: bool, work=None):
     """One launch of kernel 5 or 6 (the counting variant when ``work`` is
     given) on prepared inputs; returns its outputs."""
+    from strolle_tpu_torch.ops.kernels import cuda_lib
     from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 
     batch = x["o"].shape[:-1]
@@ -433,7 +450,8 @@ def stream_launch(x: dict, anyhit: bool, work=None):
         outs = (torch.empty(batch, device=dev), torch.empty(batch, dtype=torch.int32, device=dev),
                 torch.empty(batch, device=dev), torch.empty(batch, device=dev))
         entry = "strolle_stream_trace_surface"
-    sk._launch(entry, x["clus"], x["subs"], x["rows"], x["o"], x["d"], x["cap"], outs, work)
+    cuda_lib.launch_walk(entry, sk.launch_head(x["clus"], x["subs"], x["rows"]), x["o"], x["d"],
+                         x["cap"], outs, work)
     return outs
 
 
@@ -503,18 +521,183 @@ def compare_stream_kernels(scene, cam, device) -> tuple[dict, dict]:
     return err, sets
 
 
-def stream_bound(x: dict, anyhit: bool) -> tuple[float, str, dict]:
-    """The walk's own work on these inputs (the counting variant's box and
-    triangle tests) over the fp32 peak, against its bytes (rows and boxes
-    read once, rays in and results out) over the HBM rate."""
+def stream_cost(x: dict, anyhit: bool) -> dict:
+    """Kernel 5 or 6's walk on these inputs (the counting variant's box and
+    triangle tests) and the bytes it must move (rows and boxes read once,
+    rays in and results out); ``least_work_bounds`` makes the bounds."""
     n = x["o"].numel() // 3
     work = torch.zeros((n, 2), dtype=torch.int32, device=x["o"].device)
     stream_launch(x, anyhit, work)
     box, tri = (int(v) for v in work.sum(0, dtype=torch.int64))
     nbytes = (4 * (x["rows"].numel() + x["clus"].numel() + x["subs"].numel())
               + n * (24 + 4) + n * (1 if anyhit else 16))
-    t, by = bound(box * FLOPS_SLAB + tri * FLOPS_MT, nbytes)
-    return t, by, {"rays": n, "box_tests": box, "triangle_tests": tri}
+    return {"work": {"rays": n, "box_tests": box, "triangle_tests": tri}, "bytes": nbytes}
+
+
+def walk_ops(work: dict) -> int:
+    """fp32 operations of a walk's box and triangle tests."""
+    return work["box_tests"] * FLOPS_SLAB + work["triangle_tests"] * FLOPS_MT
+
+
+def least_work_bounds(costs: dict) -> None:
+    """Sets each walking kernel's bound_ms from the work its function
+    needs on its rays: the fewest box and triangle test operations of the
+    walks counted here on the same rays (closest hit: kernels 5, 8, 10 on
+    the primaries; any hit: 6, 9, 11 on the light shadow rays), plus the
+    resolve of each hit ray for 8 and 10, against the kernel's own bytes.
+    walk_bound_ms is the same with the kernel's own walk's tests, which
+    is no bound of the function: another walk needs fewer."""
+    for group in (("5", "8", "10"), ("6", "9", "11")):
+        rays = {costs[k]["work"]["rays"] for k in group}
+        check(len(rays) == 1, f"kernels {group} counted on different ray sets")
+        least = min(walk_ops(costs[k]["work"]) for k in group)
+        for k in group:
+            c = costs[k]
+            resolve = c["work"].get("hits", 0) * FLOPS_RESOLVE
+            c["bound_ms"], c["bound_by"] = bound(least + resolve, c["bytes"])
+            c["walk_bound_ms"] = bound(walk_ops(c["work"]) + resolve, c["bytes"])[0]
+
+
+#: Kernels 8-11: (name, module, closest-hit or any-hit, the JAX kernel it
+#: replaces, the big-scene strategy that takes it).
+WALK_KERNELS = {
+    "8": ("cluster_trace_surface", "cluster", False, "cluster_kernels.py:378", "cluster"),
+    "9": ("cluster_trace_anyhit", "cluster", True, "cluster_kernels.py:427", "cluster"),
+    "10": ("bvh_trace_surface", "bvh", False, "bvh_kernels.py:354", "packet"),
+    "11": ("bvh_trace_anyhit", "bvh", True, "bvh_kernels.py:408", "packet"),
+}
+
+
+def walk_inputs(scene, key: str, o, d, t_max=None) -> dict:
+    """The prepared inputs of one launch of kernel 8, 9, 10 or 11: the
+    cluster rows or the packed nodes, the rows, the rays and t_max (any
+    hit)."""
+    from strolle_tpu_torch.ops.trace import packed_geom_rows
+
+    _, mod, anyhit, _, _ = WALK_KERNELS[key]
+    rows = packed_geom_rows(scene)
+    table = scene.clusters.contiguous() if mod == "cluster" else scene.bvh.node_rows
+    tm = None if not anyhit else torch.broadcast_to(t_max, o.shape[:-1]).contiguous()
+    return dict(key=key, table=table, rows=rows, o=o, d=d, t_max=tm)
+
+
+def walk_launch(x: dict, work=None):
+    """One launch of kernel 8, 9, 10 or 11 (the counting variant when
+    ``work`` is given) on prepared inputs, past the wrapper and its launch
+    count; returns its outputs."""
+    from strolle_tpu_torch.ops.kernels import cluster_kernels as ck
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    name, mod, anyhit, _, _ = WALK_KERNELS[x["key"]]
+    batch = x["o"].shape[:-1]
+    if anyhit:
+        outs = (torch.empty(batch, dtype=torch.bool, device=x["o"].device),)
+    else:
+        outs = cuda_lib.surface_outputs(batch, x["o"].device)
+    head = (ck.launch_head(x["table"], x["rows"]) if mod == "cluster"
+            else (x["table"], x["rows"]))
+    cuda_lib.launch_walk("strolle_" + name, head, x["o"], x["d"], x["t_max"], outs, work)
+    return outs
+
+
+def walk_module(key: str):
+    """The module of kernel 8, 9, 10 or 11 (its wrapper and plain version)."""
+    from strolle_tpu_torch.ops.kernels import bvh_kernels, cluster_kernels
+
+    return cluster_kernels if WALK_KERNELS[key][1] == "cluster" else bvh_kernels
+
+
+def walk_plain(x: dict, work=None):
+    """The plain version of kernel 8, 9, 10 or 11 on the same inputs, its
+    outputs in the order ``walk_launch`` returns them."""
+    name, _, anyhit, _, _ = WALK_KERNELS[x["key"]]
+    fn = getattr(walk_module(x["key"]), name + "_plain")
+    if anyhit:
+        return (fn(x["table"], x["rows"], x["o"], x["d"], x["t_max"], work),)
+    t, tri, _, _, normal, uv, mat = fn(x["table"], x["rows"], x["o"], x["d"], work)
+    return t, tri, normal, uv, mat
+
+
+def compare_walk_kernels(scene, sets: dict, device) -> dict:
+    """Kernels 8-11 against their plain versions on the dungeon's ray sets
+    (the ones kernels 5 and 6 are held on), launched through their
+    wrappers, and their counting variants' box and triangle tests against
+    the plain versions'; kernel 10's tri against the torch BVH traversal
+    on the primaries. Returns the max abs error per kernel."""
+    from strolle_tpu_torch.bvh.traverse import trace_closest_bvh
+
+    err = {}
+    for name, (o, d, t_max) in sets.items():
+        n = o.numel() // 3
+        for key, (kname, _, anyhit, _, _) in WALK_KERNELS.items():
+            if (anyhit and t_max is None) or (not anyhit and name not in ("primary", "random")):
+                continue
+            x = walk_inputs(scene, key, o, d, t_max)
+            wrapper = getattr(walk_module(key), kname)
+            if anyhit:
+                got = (wrapper(x["table"], x["rows"], o, d, t_max),)
+            else:
+                g = wrapper(x["table"], x["rows"], o, d)
+                got = (g["t"], g["tri"], g["normal"], g["uv"], g["mat_id"])
+            work = torch.zeros((n, 2), dtype=torch.int32, device=device)
+            pwork = torch.zeros_like(work)
+            walk_launch(x, work)
+            want = walk_plain(x, pwork)
+            torch.cuda.synchronize()
+            what = f"kernel {key} ({name}, {n} rays)"
+            # The same walk, slab tests, fused multiply-adds and resolve:
+            # every output bit-equal, normals included (a correctly rounded
+            # sqrt and divide on both sides); allow 1e-5 of rays for the
+            # plain version's float64 emulation of fma (double rounding
+            # near a float32 midpoint).
+            differ = torch.zeros(n, dtype=torch.bool, device=device)
+            for a, b in zip(got, want):
+                differ |= (a != b).reshape(n, -1).any(-1)
+            if anyhit:
+                e = float(differ.float().max())
+                rate = got[0].float().mean().item()
+            else:
+                agree = got[1] == want[1]
+                e = max(float((a - b)[agree].abs().nan_to_num(0.0).max())
+                        for a, b in zip(got, want) if a.is_floating_point())
+                rate = (got[1] >= 0).float().mean().item()
+            mism = int(differ.sum())
+            wmism = int((work != pwork).any(-1).sum())
+            print(f"{what} vs plain: rays differing {mism}, max err {e:.3g}, work mismatches "
+                  f"{wmism}, box tests {int(work[:, 0].sum())}, triangle tests "
+                  f"{int(work[:, 1].sum())}, {'occluded' if anyhit else 'hit'} rate {rate:.3f}",
+                  flush=True)
+            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+            check(wmism <= 1e-5 * n, f"{what}: test counts differ on {wmism} rays")
+            check(anyhit or e <= 1e-5, f"{what}: fields differ by {e}")
+            check(rate > 0.0 and (rate < 1.0 or name in ("primary", "sun")),
+                  f"{what}: degenerate")
+            if key == "10" and name == "primary":
+                tri_bvh = trace_closest_bvh(scene, o, d).tri
+                flips = int((tri_bvh != got[1]).sum())
+                print(f"kernel 10 vs the torch BVH traversal on the primaries: tri differs on "
+                      f"{flips} rays", flush=True)
+                check(flips <= 1e-5 * n, f"kernel 10: tri differs from the traversal on {flips}")
+            err[key] = max(err.get(key, 0.0), e)
+    return err
+
+
+def walk_cost(x: dict) -> dict:
+    """Kernel 8, 9, 10 or 11's walk on these inputs (the counting
+    variant's box and triangle tests, and its hit rays, each resolved
+    once) and the bytes it must move (the table and rows read once, rays
+    in and results out); ``least_work_bounds`` makes the bounds."""
+    anyhit = x["t_max"] is not None
+    n = x["o"].numel() // 3
+    work = torch.zeros((n, 2), dtype=torch.int32, device=x["o"].device)
+    outs = walk_launch(x, work)
+    box, tri = (int(v) for v in work.sum(0, dtype=torch.int64))
+    hits = 0 if anyhit else int((outs[1] >= 0).sum())
+    # out: t, tri, normal [3], uv [2], mat_id = 32 B per ray; or the flag
+    nbytes = (4 * (x["rows"].numel() + x["table"].numel()) + n * (24 + (4 if anyhit else 0))
+              + n * (1 if anyhit else 32))
+    return {"work": {"rays": n, "box_tests": box, "triangle_tests": tri, "hits": hits},
+            "bytes": nbytes}
 
 
 def gi_sampling_frame(f: int) -> bool:
@@ -524,21 +707,145 @@ def gi_sampling_frame(f: int) -> bool:
     return not (f % 6 < 4 and f % 2 == 1)
 
 
-def realtime_launches(frames: int, big: bool = False) -> dict:
+def realtime_launches(frames: int, big: tuple | None = None) -> dict:
     """The launches the realtime frame makes over ``frames`` frames from
     frame 0. Cornell: kernel 4 once for the primaries and once on
     GI-sampling frames; kernel B four times for DI (sampling, two spatial
     cross-visibility rays, resolve) and once or twice for GI. A big scene
-    (the dungeon) takes kernels 5 and 6 instead, with the checkerboard
-    compaction: kernel 5 as kernel 4; kernel 6 four times a frame (DI's
-    two spatial rays and GI spatial's two go as one paired launch)."""
+    (the dungeon) takes the strategy's kernels ``big`` = (closest hit,
+    any hit) instead, with the checkerboard compaction: the closest hit as
+    kernel 4; the any hit four times a frame (DI's two spatial rays and GI
+    spatial's two go as one paired launch)."""
     sampling = sum(gi_sampling_frame(f) for f in range(frames))
     if big:
-        return {"stream_trace_surface": frames + sampling, "stream_trace_anyhit": 4 * frames}
+        return {big[0]: frames + sampling, big[1]: 4 * frames}
     return {
         "trace_surface": frames + sampling,
         "trace_anyhit_brute": 4 * frames + sampling + 2 * (frames - sampling),
     }
+
+
+@contextlib.contextmanager
+def strategy(name: str):
+    """Runs the block under BIG_SCENE_STRATEGY = ``name``; restores the
+    previous strategy after it, also when a check fails."""
+    from strolle_tpu_torch.ops import trace
+
+    old = trace.BIG_SCENE_STRATEGY
+    trace.BIG_SCENE_STRATEGY = name
+    try:
+        yield
+    finally:
+        trace.BIG_SCENE_STRATEGY = old
+
+
+#: The kernels each big-scene strategy launches: (closest hit, any hit).
+STRATEGY_KERNELS = {
+    "stream": ("stream_trace_surface", "stream_trace_anyhit"),
+    "cluster": ("cluster_trace_surface", "cluster_trace_anyhit"),
+    "packet": ("bvh_trace_surface", "bvh_trace_anyhit"),
+}
+ALL_KERNELS = ("trace_sample_megakernel", "trace_closest_brute", "trace_anyhit_brute",
+               "trace_surface") + tuple(k for ks in STRATEGY_KERNELS.values() for k in ks)
+
+
+def drive_strategy(name: str, scene, cam, luts, cfg, ref1, stream_tri) -> dict:
+    """Reference mode (1 trace_sample + FRAMES render_reference, depth
+    DEPTH, the sky) and RT_FRAMES realtime frames of the dungeon under one
+    big-scene strategy, each with the counts set to 0 before and read
+    after: the strategy's two kernels launch as the bounce loop and the GI
+    schedule say, no other kernel; images finite; the realtime mean of
+    frames 6 on within DG_RT_TOLERANCE of ``ref1``. Then the share of
+    primary rays whose tri differs from the stream route's
+    (``stream_tri``). Returns the launches, the realtime state (at a GI
+    cycle boundary) and the checks' numbers."""
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+    from strolle_tpu_torch.models.reference import init_accumulator, render_reference
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.ops.trace import trace_surface
+
+    surface, anyhit = STRATEGY_KERNELS[name]
+    out = {}
+    with strategy(name):
+        cuda_lib.reset_launch_counts()
+        img = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=True, luts=luts)
+        acc = init_accumulator(cam)
+        for f in range(FRAMES):
+            avg, acc = render_reference(scene, cam, acc, 100 + f, depth=DEPTH, include_sky=True,
+                                        luts=luts)
+        torch.cuda.synchronize()
+        ref_launches = dict(cuda_lib.LAUNCHES)
+        print(f"dungeon reference-mode launches under {name!r}: {ref_launches}", flush=True)
+        want = {surface: (DEPTH + 1) * (1 + FRAMES), anyhit: (DEPTH + 1) * (1 + FRAMES)}
+        for k in ALL_KERNELS:
+            check(ref_launches.get(k, 0) == want.get(k, 0),
+                  f"{name}: reference mode launched {k} {ref_launches.get(k, 0)} times, "
+                  f"not {want.get(k, 0)}")
+        for what, x in (("image", img), ("accumulated", avg)):
+            check(tuple(x.shape) == (cam.height, cam.width, 3), f"{name} {what}: shape")
+            check(bool(torch.isfinite(x).all()), f"{name} {what}: non-finite values")
+            check(1e-3 < x.mean().item() < 5.0, f"{name} {what}: implausible mean")
+
+        cuda_lib.reset_launch_counts()
+        rt_mean, rt_state = drive_realtime(scene, cam, 5000, cfg, luts)
+        torch.cuda.synchronize()
+        rt_launches = dict(cuda_lib.LAUNCHES)
+        print(f"dungeon realtime launches under {name!r} ({RT_FRAMES} frames): {rt_launches}",
+              flush=True)
+        want = realtime_launches(RT_FRAMES, big=(surface, anyhit))
+        for k in ALL_KERNELS:
+            check(rt_launches.get(k, 0) == want.get(k, 0),
+                  f"{name}: the realtime frame launched {k} {rt_launches.get(k, 0)} times, "
+                  f"not {want.get(k, 0)}")
+        rel = abs(rt_mean.mean().item() - ref1.mean().item()) / ref1.mean().item()
+        o, d = pixel_rays(cam, screen_grid(cam))
+        flips = (trace_surface(scene, o, d).tri != stream_tri).float().mean().item()
+        print(f"dungeon under {name!r}: realtime mean image {rt_mean.mean().item():.5f} vs "
+              f"the depth-1 sky reference {ref1.mean().item():.5f}: relative difference "
+              f"{rel:.4f}; primary tri differs from the stream route's on {flips:.2e} of "
+              "pixels", flush=True)
+        check(rel < DG_RT_TOLERANCE, f"{name}: realtime mean off the reference by {rel:.3f}")
+        check(flips <= 0.01, f"{name}: primary tri differs from the stream route on {flips}")
+    return {"ref_launches": ref_launches, "realtime_launches": rt_launches, "state": rt_state,
+            "realtime_mean_vs_reference": rel, "primary_tri_flip_share": flips}
+
+
+def time_strategies(scene, cam, luts, cfg, states: dict) -> list:
+    """Both dungeon modes timed under each strategy in turns (stream,
+    cluster, packet, stream), in one call on one card: reference mode
+    (median of 5 samples) and the realtime frame (3 GI cycles from
+    ``states[name]``, advanced in place), with a profile of 2 reference
+    samples and, for cluster and packet, of 2 realtime frames (after
+    their timing, whose state nothing reads again)."""
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.models.restir import render_frame_fused
+
+    turns = []
+    for i, name in enumerate(("stream", "cluster", "packet", "stream")):
+        def ref():
+            return trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=True, luts=luts)
+
+        phase(f"6, dungeon turn {i + 1} ({name})")
+        seed = [9000 + 100 * i]
+
+        def rt_frame():
+            _, states[name] = render_frame_fused(scene, cam, states[name], seed[0], cfg, luts)
+            seed[0] += 1
+
+        with strategy(name):
+            turn = {"strategy": name, "ref_ms_per_frame": time_ms(ref, warmup=1, iters=5)}
+            (turn["realtime_ms_per_frame"], turn["realtime_cycle_ms_per_frame"],
+             states[name]) = time_realtime(scene, cam, states[name], 6000 + 18 * i, cfg, luts)
+            turn["profile_ref"] = profile_frames(ref, frames=2)
+            if name != "stream":
+                turn["profile_realtime"] = profile_frames(rt_frame, frames=2)
+        print(f"dungeon under {name!r} (turn {i + 1}): reference "
+              f"{turn['ref_ms_per_frame']:.1f} ms/frame, realtime "
+              f"{turn['realtime_ms_per_frame']:.1f} ms/frame (cycles "
+              f"{turn['realtime_cycle_ms_per_frame']})", flush=True)
+        turns.append(turn)
+    return turns
 
 
 def drive_realtime(scene, cam, seed0: int, config=None, luts=None):
@@ -634,6 +941,13 @@ def time_stages(scene, cam, state, seed0: int, cfg=None, luts=None) -> tuple[dic
     return total, state
 
 
+T_START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    print(f"[{time.perf_counter() - T_START:.1f} s] phase {name}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -681,6 +995,7 @@ def main() -> int:
     print(f"build: {native_s:.1f} s (native host library, one g++)", flush=True)
 
     # --- 2. each kernel against its plain version -------------------------
+    phase("2")
     scene = cornell_box(device=device)
     metal = cornell_box(metallic_tall_box=True, device=device)
     cam = cornell_camera(WIDTH, HEIGHT, device=device)
@@ -701,6 +1016,7 @@ def main() -> int:
         {"cornell": scene, "perturbed_normals": variants["perturbed_normals"]}, cam, device)
 
     # --- 3. the reference-mode path, counted ------------------------------
+    phase("3")
     entry_cam = cornell_camera(ENTRY_SIZE, ENTRY_SIZE, device=device)
     cuda_lib.reset_launch_counts()
     img = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False)
@@ -708,8 +1024,9 @@ def main() -> int:
     acc = init_accumulator(cam)
     for f in range(FRAMES):
         avg, acc = render_reference(scene, cam, acc, 100 + f, depth=DEPTH, include_sky=False)
+    # the staged loop's gradient route (use_pallas=False): kernels A and B
     staged = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False,
-                          use_megakernel=False)
+                          use_megakernel=False, use_pallas=False)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
     print(f"reference-mode path launches: {launches}", flush=True)
@@ -730,7 +1047,34 @@ def main() -> int:
     # the 8-frame average is a smoother estimate of the same image
     check(abs(avg.mean().item() - img.mean().item()) < 0.02, "accumulated mean drifted")
 
+    # --- 3b. the staged loop's default route, counted ----------------------
+    phase("3b")
+    # use_pallas=None, as the JAX package's loop: every surface through the
+    # fused route (kernel 4 on Cornell), none through kernel A; with
+    # use_megakernel=False, and with the sky (which the megakernel refuses)
+    cuda_lib.reset_launch_counts()
+    staged_fused = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False,
+                                use_megakernel=False)
+    staged_sky = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=True)
+    torch.cuda.synchronize()
+    fused_launches = dict(cuda_lib.LAUNCHES)
+    print(f"staged loop launches, use_pallas=None (2 samples): {fused_launches}", flush=True)
+    want = {"trace_surface": 2 * (DEPTH + 1), "trace_anyhit_brute": 2 * (DEPTH + 1)}
+    for k in ALL_KERNELS:
+        check(fused_launches.get(k, 0) == want.get(k, 0),
+              f"staged loop (use_pallas=None) launched {k} {fused_launches.get(k, 0)} times, "
+              f"not {want.get(k, 0)}")
+    check(bool(torch.isfinite(staged_sky).all()), "staged loop with the sky: non-finite values")
+    # the same hits, attributes resolved in the kernel instead of by
+    # surface_at: a few last bits, which may flip a rare decision
+    diff = (staged_fused - staged).abs().amax(-1)
+    frac_ok = (diff <= 1e-3).float().mean().item()
+    print(f"staged loop, fused route vs use_pallas=False: {frac_ok:.5f} of pixels within 1e-3, "
+          f"means {staged_fused.mean().item():.5f} vs {staged.mean().item():.5f}", flush=True)
+    check(frac_ok > 0.99, "staged loop: the fused route disagrees with use_pallas=False")
+
     # --- 4. the realtime frame, counted -------------------------------------
+    phase("4")
     luts_for(scene.sun_altitude, device)  # the LUTs are made once, like the kernels
     cuda_lib.reset_launch_counts()
     rt_mean, rt_state = drive_realtime(scene, cam, 1000)
@@ -753,6 +1097,7 @@ def main() -> int:
     check(rel < 0.10, f"realtime mean off the reference by {rel:.3f}")
 
     # --- 5. the dungeon: kernels 5 and 6, reference mode, the realtime frame
+    phase("5")
     t0 = time.perf_counter()
     dg, dluts = dungeon_scene(device)
     dg_load_s = time.perf_counter() - t0
@@ -791,7 +1136,7 @@ def main() -> int:
     torch.cuda.synchronize()
     drt_launches = dict(cuda_lib.LAUNCHES)
     print(f"dungeon realtime launches ({RT_FRAMES} frames): {drt_launches}", flush=True)
-    want = realtime_launches(RT_FRAMES, big=True)
+    want = realtime_launches(RT_FRAMES, big=STRATEGY_KERNELS["stream"])
     for k, n in want.items():
         check(drt_launches.get(k, 0) == n, f"dungeon realtime {k} launches "
               f"{drt_launches.get(k, 0)} != {n}")
@@ -805,12 +1150,35 @@ def main() -> int:
           f"{dref1.mean().item():.5f}: relative difference {drel:.4f}", flush=True)
     check(drel < DG_RT_TOLERANCE, f"dungeon realtime mean off the reference by {drel:.3f}")
 
+    # --- 5b. kernels 8-11 against their plain versions ---------------------
+    phase("5b")
+    err.update(compare_walk_kernels(dg, ssets, device))
+
+    # --- 5c. the dungeon under the cluster and packet strategies ------------
+    phase("5c")
+    from strolle_tpu_torch.ops.trace import trace_closest, trace_surface
+
+    dpo, dpd = ssets["primary"][:2]
+    stream_tri = trace_surface(dg, dpo, dpd).tri
+    strat = {name: drive_strategy(name, dg, dcam, dluts, dcfg, dref1, stream_tri)
+             for name in ("cluster", "packet")}
+    # the torch BVH traversal on the card: trace_closest's route under
+    # "packet" (and every strategy but "stream")
+    with strategy("packet"):
+        cuda_lib.reset_launch_counts()
+        ms_traverse = time_ms(lambda: trace_closest(dg, dpo, dpd), warmup=1, iters=3)
+        profile_traverse = profile_frames(lambda: trace_closest(dg, dpo, dpd), frames=1)
+        check(not cuda_lib.LAUNCHES, f"trace_closest under 'packet' launched {cuda_lib.LAUNCHES}")
+    print(f"trace_closest under 'packet' (the torch BVH traversal) on {dpo.numel() // 3} "
+          f"primary rays: {ms_traverse:.1f} ms, profile {profile_traverse}", flush=True)
+
     # --- 6. timings -----------------------------------------------------
+    phase("6")
     rays = WIDTH * HEIGHT * (DEPTH + 1) * 2
     ms_mega = time_ms(lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False))
     ms_staged = time_ms(
         lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False,
-                             use_megakernel=False),
+                             use_megakernel=False, use_pallas=False),
         warmup=1, iters=5,
     )
     ms_entry = time_ms(
@@ -868,17 +1236,18 @@ def main() -> int:
 
     rt_profile = profile_frames(rt_frame, frames=6)
 
-    # the dungeon: reference mode, the realtime frame, kernels 5 and 6
-    ms_dg_ref = time_ms(
-        lambda: trace_sample(dg, dcam, SEED, depth=DEPTH, include_sky=True, luts=dluts),
-        warmup=1, iters=5,
-    )
+    # the dungeon: both modes under each strategy in turns, then the
+    # stream route's render_reference, stages and profile; kernels 5 and 6
+    states = {"stream": drt_state, **{name: r.pop("state") for name, r in strat.items()}}
+    turns = time_strategies(dg, dcam, dluts, dcfg, states)
+    ms_dg_ref = turns[0]["ref_ms_per_frame"]
+    drt_ms, drt_cycles = turns[0]["realtime_ms_per_frame"], turns[0]["realtime_cycle_ms_per_frame"]
+    drt_state = states["stream"]
     dacc_t = init_accumulator(dcam)
     ms_dg_render = time_ms(
         lambda: render_reference(dg, dcam, dacc_t, 3, depth=DEPTH, include_sky=True, luts=dluts),
         warmup=1, iters=5,
     )
-    drt_ms, drt_cycles, drt_state = time_realtime(dg, dcam, drt_state, 6000, dcfg, dluts)
     drt_stages, drt_state = time_stages(dg, dcam, drt_state, 7000, dcfg, dluts)
     dholder = {"state": drt_state, "seed": 8000}
 
@@ -894,10 +1263,21 @@ def main() -> int:
     x6 = stream_inputs(dg, *ssets["lights"])
     ms_5 = time_ms(lambda: stream_launch(x5, False))
     plain_5 = time_ms(lambda: stream_plain(x5, False), warmup=1, iters=3)
-    bound_5, by_5, work_5 = stream_bound(x5, False)
     ms_6 = time_ms(lambda: stream_launch(x6, True))
     plain_6 = time_ms(lambda: stream_plain(x6, True), warmup=1, iters=3)
-    bound_6, by_6, work_6 = stream_bound(x6, True)
+    cost = {"5": stream_cost(x5, False), "6": stream_cost(x6, True)}
+
+    # kernels 8 and 10 on the primary rays, 9 and 11 on the reference
+    # loop's bounce-0 shadow rays toward the lights (kernels 5 and 6's sets)
+    walk = {}
+    for key, (_, _, anyhit, _, _) in WALK_KERNELS.items():
+        x = walk_inputs(dg, key, *ssets["lights" if anyhit else "primary"])
+        walk[key] = {
+            "ms": time_ms(lambda: walk_launch(x)),
+            "plain_ms": time_ms(lambda: walk_plain(x), warmup=1, iters=3),
+        }
+        cost[key] = walk_cost(x)
+    least_work_bounds(cost)
 
     timings = {
         "card": card,
@@ -919,7 +1299,7 @@ def main() -> int:
             lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False)),
         "profile_staged": profile_frames(
             lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False,
-                                 use_megakernel=False), frames=2),
+                                 use_megakernel=False, use_pallas=False), frames=2),
         "native_build_s": native_s,
         "dungeon_load_s": dg_load_s,
         "dungeon_ref_ms_per_frame": ms_dg_ref,
@@ -930,11 +1310,15 @@ def main() -> int:
         "dungeon_realtime_stage_ms_per_frame": drt_stages,
         "dungeon_profile_realtime": drt_profile,
         "dungeon_realtime_mean_vs_reference": drel,
-        "dungeon_profile_ref": profile_frames(
-            lambda: trace_sample(dg, dcam, SEED, depth=DEPTH, include_sky=True, luts=dluts),
-            frames=2),
-        "stream_surface_work": work_5,
-        "stream_anyhit_work": work_6,
+        "dungeon_profile_ref": turns[0]["profile_ref"],
+        "walk_costs": cost,
+        "strategies": {name: {k: v for k, v in r.items() if not k.endswith("launches")}
+                       for name, r in strat.items()},
+        "strategy_turns": turns,
+        "walk_kernels": walk,
+        "traverse_packet_ms": ms_traverse,
+        "traverse_packet_profile": profile_traverse,
+        "total_s": time.perf_counter() - T_START,
     }
     print("timings: " + json.dumps(timings), flush=True)
 
@@ -968,13 +1352,13 @@ def main() -> int:
         "name": "trace_surface", "route": "cuda",
         "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
         "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:328",
-        "launches": rt_launches["trace_surface"],
+        "launches": rt_launches["trace_surface"] + fused_launches["trace_surface"],
         "max_abs_err": err["4"], "ms": ms_4, "plain_ms": plain_4,
         "bound_ms": bound_4, "bound_by": by_4, "library_ms": None,
     })
-    for name, key, ms, plain, bnd, by in (
-        ("stream_trace_surface", "5", ms_5, plain_5, bound_5, by_5),
-        ("stream_trace_anyhit", "6", ms_6, plain_6, bound_6, by_6),
+    for name, key, ms, plain in (
+        ("stream_trace_surface", "5", ms_5, plain_5),
+        ("stream_trace_anyhit", "6", ms_6, plain_6),
     ):
         kernels.append({
             "name": name, "route": "cuda",
@@ -983,8 +1367,22 @@ def main() -> int:
                         + ("660" if key == "5" else "736"),
             "launches": dg_launches[name] + drt_launches[name],
             "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "bound_ms": cost[key]["bound_ms"], "bound_by": cost[key]["bound_by"],
+            "walk_bound_ms": cost[key]["walk_bound_ms"], "library_ms": None,
         })
+    for key, (name, mod, _, replaces, strat_name) in WALK_KERNELS.items():
+        r = strat[strat_name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"strolle_tpu_torch/csrc/{mod}_kernels.cu",
+            "replaces": "strolle_tpu/ops/pallas/" + replaces,
+            "launches": r["ref_launches"][name] + r["realtime_launches"][name],
+            "max_abs_err": err[key], "ms": walk[key]["ms"], "plain_ms": walk[key]["plain_ms"],
+            "bound_ms": cost[key]["bound_ms"], "bound_by": cost[key]["bound_by"],
+            "walk_bound_ms": cost[key]["walk_bound_ms"],
+            "library_ms": None,
+        })
+    check(len(kernels) == 10, "the kernels line must list the ten ported kernels")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: never launched on its main path")
         check(all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")),

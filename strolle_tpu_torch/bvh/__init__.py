@@ -1,5 +1,5 @@
 """BVH construction (port of strolle_tpu/bvh/__init__.py); the torch
-traversal of strolle_tpu/bvh/traverse.py is not ported yet."""
+traversal is in bvh/traverse.py."""
 
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def scene_with_bvh(scene: Scene) -> Scene:
 def build_clusters(scene: Scene):
     """Cluster AABB rows [K, 8] of the big-scene kernels, built once per
     BVH; None for scenes the brute-force kernels take."""
-    from ..ops.kernels.stream_kernels import clusterize_bvh
+    from ..ops.kernels.cluster_kernels import clusterize_bvh
     from ..ops.trace import BRUTE_FORCE_MAX_TRIS
 
     geom = scene.geometry

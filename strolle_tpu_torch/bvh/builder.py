@@ -8,11 +8,15 @@ The binned-SAH build runs on the host in the C++ library
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from .. import native
+
+#: Most triangles in one leaf (``native/strolle_native.cpp`` MAX_LEAF_SIZE).
+MAX_LEAF_SIZE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +34,14 @@ class BvhArrays:
     @property
     def num_nodes(self) -> int:
         return self.child.shape[0]
+
+    @functools.cached_property
+    def node_rows(self) -> torch.Tensor:
+        """The [N, 16] node rows of the BVH kernels (``bvh_kernels.pack_nodes``),
+        packed once per BVH."""
+        from ..ops.kernels.bvh_kernels import pack_nodes
+
+        return pack_nodes(self)
 
 
 def build_bvh(positions: np.ndarray, device) -> tuple[BvhArrays, np.ndarray]:

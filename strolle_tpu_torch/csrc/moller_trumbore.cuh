@@ -1,5 +1,6 @@
 // The ray-triangle test shared by the port's kernels (trace_kernels.cu,
-// stream_kernels.cu): Möller-Trumbore on a row v0(3) e1(3) e2(3).
+// stream_kernels.cu, cluster_kernels.cu, bvh_kernels.cu): Möller-Trumbore
+// on a row v0(3) e1(3) e2(3).
 //
 // Multiply-adds are fused exactly where XLA:CPU fuses them in the JAX
 // package (and where ops/intersect.py's plain version does):
@@ -43,6 +44,18 @@ __device__ __forceinline__ MtHit moller_trumbore(const float* r, float ox, float
   const bool hit = fabsf(det) >= kEps && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                    u + v <= 1.0f && t > 0.0f;
   return {hit ? t : INFINITY, u, v};
+}
+
+// Möller-Trumbore on row ``row`` of rows ``width`` floats wide in global
+// memory, read through the read-only path.
+__device__ __forceinline__ MtHit test_row(const float* __restrict__ rows, int row, int width,
+                                          float ox, float oy, float oz, float dx, float dy,
+                                          float dz) {
+  float r[9];
+  const float* p = rows + static_cast<size_t>(row) * width;
+#pragma unroll
+  for (int q = 0; q < 9; ++q) r[q] = __ldg(p + q);
+  return moller_trumbore(r, ox, oy, oz, dx, dy, dz);
 }
 
 }  // namespace strolle

@@ -28,7 +28,8 @@
 // staging of rows are later work.
 //
 // The kCount variant (not used by the timed launches) also writes each
-// ray's count of box tests and triangle tests, the work the bound counts.
+// ray's count of box tests and triangle tests: the walk's work, held
+// against the plain version's and set beside the kernel's bound.
 //
 // Floating point: --fmad=false, no fast math; the slab tests are the
 // plain version's subtract, multiply, min and max, and Möller-Trumbore
@@ -40,11 +41,16 @@
 #include <stdint.h>
 
 #include "moller_trumbore.cuh"
+#include "slab.cuh"
+#include "smem.cuh"
 
 namespace {
 
-using strolle::moller_trumbore;
+using strolle::allow_smem;
+using strolle::inv_dir;
 using strolle::MtHit;
+using strolle::slab;
+using strolle::test_row;
 
 constexpr int kThreads = 256;
 constexpr int kClusterTris = 256;
@@ -55,19 +61,10 @@ constexpr int kBoxWidth = 8;
 // Box tables above this size are read from global memory instead.
 constexpr size_t kMaxSmem = 200 * 1024;
 
-__device__ __forceinline__ float inv_dir(float x) {
-  const float tiny = 1e-20f;
-  return 1.0f / (fabsf(x) < tiny ? (x >= 0.0f ? tiny : -tiny) : x);
-}
-
-__device__ __forceinline__ bool slab(const float* b, float ox, float oy, float oz, float ix,
-                                     float iy, float iz, float best) {
-  const float t0x = (b[0] - ox) * ix, t1x = (b[3] - ox) * ix;
-  const float t0y = (b[1] - oy) * iy, t1y = (b[4] - oy) * iy;
-  const float t0z = (b[2] - oz) * iz, t1z = (b[5] - oz) * iz;
-  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  return tn <= tf && tf >= 0.0f && tn <= best;
+__device__ __forceinline__ bool enters(const float* b, float ox, float oy, float oz, float ix,
+                                       float iy, float iz, float best) {
+  float tn;
+  return slab(b, b + 3, ox, oy, oz, ix, iy, iz, best, &tn);
 }
 
 // Copies the cluster and sub-block boxes into shared memory when
@@ -86,15 +83,6 @@ __device__ __forceinline__ void stage_boxes(const float* __restrict__ clus_g,
   __syncthreads();
   *clus = smem;
   *subs = smem + nc;
-}
-
-__device__ __forceinline__ MtHit row_test(const float* __restrict__ rows, int row, float ox,
-                                          float oy, float oz, float dx, float dy, float dz) {
-  float r[9];
-  const float* p = rows + static_cast<size_t>(row) * kRowWidth;
-#pragma unroll
-  for (int q = 0; q < 9; ++q) r[q] = __ldg(p + q);
-  return moller_trumbore(r, ox, oy, oz, dx, dy, dz);
 }
 
 template <bool kCount>
@@ -120,15 +108,15 @@ __global__ void __launch_bounds__(kThreads)
     const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
     for (int k = 0; k < n_clusters; ++k) {
       if (kCount) ++box_tests;
-      if (!slab(clus + k * kBoxWidth, ox, oy, oz, ix, iy, iz, bt)) continue;
+      if (!enters(clus + k * kBoxWidth, ox, oy, oz, ix, iy, iz, bt)) continue;
       for (int s = 0; s < kSub; ++s) {
         if (kCount) ++box_tests;
-        if (!slab(subs + (k * kSub + s) * kBoxWidth, ox, oy, oz, ix, iy, iz, bt)) continue;
+        if (!enters(subs + (k * kSub + s) * kBoxWidth, ox, oy, oz, ix, iy, iz, bt)) continue;
         const int first = k * kClusterTris + s * kSubTris;
         const int last = min(first + kSubTris, n_rows);
         if (kCount && last > first) tri_tests += last - first;
         for (int j = first; j < last; ++j) {
-          const MtHit h = row_test(rows, j, ox, oy, oz, dx, dy, dz);
+          const MtHit h = test_row(rows, j, kRowWidth, ox, oy, oz, dx, dy, dz);
           if (h.t < bt) {
             bt = h.t;
             btri = j;
@@ -171,15 +159,15 @@ __global__ void __launch_bounds__(kThreads)
     const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
     for (int k = 0; k < n_clusters && !occ; ++k) {
       if (kCount) ++box_tests;
-      if (!slab(clus + k * kBoxWidth, ox, oy, oz, ix, iy, iz, tm)) continue;
+      if (!enters(clus + k * kBoxWidth, ox, oy, oz, ix, iy, iz, tm)) continue;
       for (int s = 0; s < kSub && !occ; ++s) {
         if (kCount) ++box_tests;
-        if (!slab(subs + (k * kSub + s) * kBoxWidth, ox, oy, oz, ix, iy, iz, tm)) continue;
+        if (!enters(subs + (k * kSub + s) * kBoxWidth, ox, oy, oz, ix, iy, iz, tm)) continue;
         const int first = k * kClusterTris + s * kSubTris;
         const int last = min(first + kSubTris, n_rows);
         for (int j = first; j < last; ++j) {
           if (kCount) ++tri_tests;
-          if (row_test(rows, j, ox, oy, oz, dx, dy, dz).t < tm) {
+          if (test_row(rows, j, kRowWidth, ox, oy, oz, dx, dy, dz).t < tm) {
             occ = true;
             break;
           }
@@ -192,15 +180,6 @@ __global__ void __launch_bounds__(kThreads)
     work[2 * i] += box_tests;
     work[2 * i + 1] += tri_tests;
   }
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  }
-  return cudaSuccess;
 }
 
 size_t box_bytes(int n_clusters) {
@@ -220,12 +199,12 @@ extern "C" int strolle_stream_trace_surface(const float* clus, const float* subs
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (work != nullptr) {
-    err = prepare(stream_surface_kernel<true>, smem);
+    err = allow_smem(stream_surface_kernel<true>, smem);
     if (err != cudaSuccess) return err;
     stream_surface_kernel<true><<<blocks, kThreads, smem, s>>>(
         clus, subs, n_clusters, use_smem, rows, n_rows, o, d, tcap, n_rays, t, tri, u, v, work);
   } else {
-    err = prepare(stream_surface_kernel<false>, smem);
+    err = allow_smem(stream_surface_kernel<false>, smem);
     if (err != cudaSuccess) return err;
     stream_surface_kernel<false><<<blocks, kThreads, smem, s>>>(
         clus, subs, n_clusters, use_smem, rows, n_rows, o, d, tcap, n_rays, t, tri, u, v,
@@ -245,12 +224,12 @@ extern "C" int strolle_stream_trace_anyhit(const float* clus, const float* subs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (work != nullptr) {
-    err = prepare(stream_anyhit_kernel<true>, smem);
+    err = allow_smem(stream_anyhit_kernel<true>, smem);
     if (err != cudaSuccess) return err;
     stream_anyhit_kernel<true><<<blocks, kThreads, smem, s>>>(
         clus, subs, n_clusters, use_smem, rows, n_rows, o, d, t_max, n_rays, occluded, work);
   } else {
-    err = prepare(stream_anyhit_kernel<false>, smem);
+    err = allow_smem(stream_anyhit_kernel<false>, smem);
     if (err != cudaSuccess) return err;
     stream_anyhit_kernel<false><<<blocks, kThreads, smem, s>>>(
         clus, subs, n_clusters, use_smem, rows, n_rows, o, d, t_max, n_rays, occluded,

@@ -33,11 +33,15 @@
 #include <stdint.h>
 
 #include "moller_trumbore.cuh"
+#include "resolve.cuh"
+#include "smem.cuh"
 
 namespace {
 
+using strolle::allow_smem;
 using strolle::moller_trumbore;
 using strolle::MtHit;
+using strolle::resolve_surface;
 
 constexpr int kRowWidth = 12;
 constexpr int kGeomWidth = 28;
@@ -125,51 +129,19 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   // A miss resolves to zeros, as the TPU kernel's where-selects leave it.
-  float nx = 0.0f, ny = 0.0f, nz = 0.0f, uvx = 0.0f, uvy = 0.0f;
+  float n[3] = {0.0f, 0.0f, 0.0f}, uv[2] = {0.0f, 0.0f};
   int mat = 0;
-  if (btri >= 0) {
-    const float* r = s_rows + btri * kGeomWidth;
-    // det sign for the normal flip, with the fused multiply-adds of the
-    // closest-hit test (so the sign is the one that test saw)
-    const float px = fmaf(dy, r[8], -(dz * r[7]));
-    const float py = fmaf(dz, r[6], -(dx * r[8]));
-    const float pz = fmaf(dx, r[7], -(dy * r[6]));
-    const float det = fmaf(r[5], pz, fmaf(r[4], py, r[3] * px));
-    const float dsign = det >= 0.0f ? 1.0f : -1.0f;
-    const float w = 1.0f - bu - bv;
-    nx = w * r[9] + bu * r[12] + bv * r[15];
-    ny = w * r[10] + bu * r[13] + bv * r[16];
-    nz = w * r[11] + bu * r[14] + bv * r[17];
-    // a correctly rounded sqrt and divide rather than the approximate
-    // rsqrtf, to stay within an ulp of the plain version's torch.rsqrt
-    const float inv_len = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-20f));
-    const float flip = dsign * inv_len;
-    nx *= flip;
-    ny *= flip;
-    nz *= flip;
-    uvx = w * r[18] + bu * r[20] + bv * r[22];
-    uvy = w * r[19] + bu * r[21] + bv * r[23];
-    mat = static_cast<int>(r[24]);
-  }
+  if (btri >= 0) resolve_surface(s_rows + btri * kGeomWidth, dx, dy, dz, bu, bv, n, uv, &mat);
   t_out[i] = bt;
   tri_out[i] = btri;
   u_out[i] = bu;
   v_out[i] = bv;
-  normal_out[3 * i] = nx;
-  normal_out[3 * i + 1] = ny;
-  normal_out[3 * i + 2] = nz;
-  uv_out[2 * i] = uvx;
-  uv_out[2 * i + 1] = uvy;
+  normal_out[3 * i] = n[0];
+  normal_out[3 * i + 1] = n[1];
+  normal_out[3 * i + 2] = n[2];
+  uv_out[2 * i] = uv[0];
+  uv_out[2 * i + 1] = uv[1];
   mat_out[i] = mat;
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  }
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -178,7 +150,7 @@ extern "C" int strolle_trace_closest_brute(const float* rows, int n_rows, const 
                                            const float* d, int n_rays, float* t, int* tri,
                                            float* u, float* v, void* stream) {
   const size_t smem = sizeof(float) * kRowWidth * static_cast<size_t>(n_rows);
-  cudaError_t err = prepare(closest_brute_kernel, smem);
+  cudaError_t err = allow_smem(closest_brute_kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   closest_brute_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -190,7 +162,7 @@ extern "C" int strolle_trace_anyhit_brute(const float* rows, int n_rows, const f
                                           const float* d, const float* t_max, int n_rays,
                                           bool* occluded, void* stream) {
   const size_t smem = sizeof(float) * kRowWidth * static_cast<size_t>(n_rows);
-  cudaError_t err = prepare(anyhit_brute_kernel, smem);
+  cudaError_t err = allow_smem(anyhit_brute_kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   anyhit_brute_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -204,7 +176,7 @@ extern "C" int strolle_trace_surface(const float* rows, int n_rows, const float*
                                      float* u, float* v, float* normal, float* uv,
                                      int* mat, void* stream) {
   const size_t smem = sizeof(float) * kGeomWidth * static_cast<size_t>(n_rows);
-  cudaError_t err = prepare(surface_closest_kernel, smem);
+  cudaError_t err = allow_smem(surface_closest_kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   surface_closest_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -4,10 +4,13 @@ strolle_tpu/models/reference.py).
 By default one sample of every pixel is one launch of the megakernel
 (ops/kernels/ref_kernel.py) where the scene allows it: no sky, no atlas,
 no alpha and at most 1024 triangles. Otherwise, or with
-``use_megakernel=False``, the staged loop runs — per bounce a
-closest-hit launch (kernel A, or kernel 5 for a big scene), the sky on
-miss rays, the shading in tensor ops, and a shadow-ray any-hit launch
-(kernel B, or kernel 6) — which is also the megakernel's oracle and the
+``use_megakernel=False`` or ``use_pallas=False``, the staged loop runs:
+per bounce ``trace_surface`` with the caller's ``use_pallas``, the sky
+on miss rays, the shading in tensor ops, and a shadow-ray
+``trace_anyhit``. With ``use_pallas`` None (the default) the surface
+takes the fused route (kernel 4 on a small scene, the strategy's kernel
+on a big one), as the JAX package's loop does; ``use_pallas=False``
+takes trace_closest + surface_at (kernel A on a small scene), the
 forward pass that gradients take.
 Accumulation across frames resets when the camera moves by more than
 0.0025 in any entry of its projection-view matrix.
@@ -74,18 +77,22 @@ def sample_pixels(
     include_sky: bool = True,
     use_megakernel: bool | None = None,
     luts=None,
+    use_pallas: bool | None = None,
 ) -> torch.Tensor:
     """One path-traced sample for each pixel in ``grid``; radiance
     [..., 3]: the sky on miss rays (through ``luts`` when given, else the
     analytic march), emissive + one-light NEE + layered-BRDF
     continuation, with roughness regularised after the first bounce.
     ``use_megakernel``: None takes the megakernel where it fits, True
-    requires it, False takes the staged loop."""
+    requires it, False takes the staged loop. ``use_pallas`` has the JAX
+    package's meaning: False takes the staged loop with trace_closest +
+    surface_at (the differentiable route); None and True let the
+    megakernel run where it fits and pass on to ``trace_surface``."""
     check_scene_supported(scene)
-    fits = megakernel_fits(scene, include_sky, luts)
+    fits = megakernel_fits(scene, include_sky, luts) and use_pallas is not False
     if use_megakernel and not fits:
-        raise ValueError("use_megakernel=True: the megakernel takes no sky, atlas, alpha or "
-                         f"scene over {BRUTE_FORCE_MAX_TRIS} triangles")
+        raise ValueError("use_megakernel=True: the megakernel takes no sky, atlas, alpha, "
+                         f"scene over {BRUTE_FORCE_MAX_TRIS} triangles or use_pallas=False")
     o, d = pixel_rays(camera, grid)
     state = rng.wnoise_new(seed, grid[..., 0], grid[..., 1])
     if use_megakernel is not False and fits:
@@ -102,7 +109,7 @@ def sample_pixels(
 
     sun = sun_direction(scene.sun_azimuth, scene.sun_altitude, device=dev)
     for bounce in range(depth + 1):
-        surf = trace_surface(scene, o, d, regularize=bounce > 0, use_pallas=False)
+        surf = trace_surface(scene, o, d, regularize=bounce > 0, use_pallas=use_pallas)
 
         # the sky on miss rays
         if include_sky:
@@ -176,10 +183,12 @@ def trace_sample(
     include_sky: bool = True,
     use_megakernel: bool | None = None,
     luts=None,
+    use_pallas: bool | None = None,
 ) -> torch.Tensor:
     """One path-traced sample per pixel over the full screen [H, W, 3]."""
     return sample_pixels(
-        scene, camera, screen_grid(camera), seed, depth, include_sky, use_megakernel, luts
+        scene, camera, screen_grid(camera), seed, depth, include_sky, use_megakernel, luts,
+        use_pallas,
     )
 
 
@@ -192,6 +201,7 @@ def render_reference(
     include_sky: bool = True,
     use_megakernel: bool | None = None,
     luts=None,
+    use_pallas: bool | None = None,
 ):
     """Accumulating reference render. Returns (image [H, W, 3], accum').
     With the sky on and no ``luts``, the LUTs of the scene's sun altitude
@@ -199,7 +209,8 @@ def render_reference(
     stays on the device (no host sync)."""
     if include_sky and luts is None:
         luts = luts_for(scene.sun_altitude, camera.device)
-    sample = trace_sample(scene, camera, seed, depth, include_sky, use_megakernel, luts)
+    sample = trace_sample(scene, camera, seed, depth, include_sky, use_megakernel, luts,
+                          use_pallas)
     keep = torch.all(torch.abs(accum.projection_view - camera.projection_view) <= 0.0025)
     keep_f = keep.to(torch.float32)
     color = accum.color * keep_f + sample

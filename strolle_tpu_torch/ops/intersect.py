@@ -78,6 +78,31 @@ def ray_triangle_edges(o, d, v0, e1, e2):
     return torch.where(valid, t, math.inf), u, v, det
 
 
+def slab(lo, hi, o, inv_d, t_max):
+    """Slab test (ray.rs:273-302) of rays against boxes lo/hi, all
+    broadcastable [..., 3]: (the ray enters the box before ``t_max``,
+    its entry distance). The kernels' walks and the BVH traversal share
+    it, and the CUDA kernels repeat its operations (csrc/slab.cuh)."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    t_near = torch.minimum(t0, t1).amax(dim=-1)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    return (t_near <= t_far) & (t_far >= 0.0) & (t_near <= t_max), t_near
+
+
+def ray_aabb(o, inv_d, bb_min, bb_max, t_max):
+    """The entry distance where the ray meets the box before ``t_max``,
+    else +inf."""
+    hit, t_near = slab(bb_min, bb_max, o, inv_d, t_max)
+    return torch.where(hit, t_near, math.inf)
+
+
+def safe_inv_dir(d):
+    """1 / d per component, with |d| < 1e-20 replaced by +-1e-20."""
+    tiny = 1e-20
+    return 1.0 / torch.where(torch.abs(d) < tiny, torch.where(d >= 0, tiny, -tiny), d)
+
+
 def ray_sphere(o, d, center, radius):
     """Smallest positive t of the ray against a sphere, or +inf."""
     oc = o - center

@@ -9,7 +9,9 @@ built or imported from CUDA when this module is imported.
 
 Each C entry point launches on the stream it is given and returns the
 ``cudaError_t`` of the launch; ``check`` turns a non-zero code into an
-exception.
+exception. ``check_walk_inputs``, ``launch_walk``, ``surface_outputs``
+and ``surface_dict`` are the plumbing the walking kernels' wrappers
+(stream, cluster and BVH: kernels 5, 6 and 8-11) share.
 """
 
 from __future__ import annotations
@@ -66,6 +68,16 @@ _SIGNATURES = {
     # clus, subs, n_clusters, rows, n_rows, o, d, t_max, n_rays, occluded,
     # work, stream
     "strolle_stream_trace_anyhit": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # clus, n_clusters, rows, n_rows, o, d, n_rays, t, tri, normal, uv, mat,
+    # work (NULL: the timed variant), stream
+    "strolle_cluster_trace_surface": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # clus, n_clusters, rows, n_rows, o, d, t_max, n_rays, occluded, work,
+    # stream
+    "strolle_cluster_trace_anyhit": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # nodes, rows, o, d, n_rays, t, tri, normal, uv, mat, work, stream
+    "strolle_bvh_trace_surface": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # nodes, rows, o, d, t_max, n_rays, occluded, work, stream
+    "strolle_bvh_trace_anyhit": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 
@@ -144,3 +156,69 @@ def check_tensors(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: non-contiguous input")
+
+
+#: Width of a ``trace_kernels.pack_geometry`` row, the triangle rows the
+#: walking kernels read.
+GEOM_ROW_WIDTH = 28
+
+
+def check_walk_inputs(name, table, width, geom_rows, o, d):
+    """Shapes, types and devices a walking kernel's wrapper takes:
+    ``table`` [N, width] (cluster or node rows), [T', 28] rows, o/d
+    [..., 3] of one shape, all float32 on the CPU or a CUDA card."""
+    if table.ndim != 2 or table.shape[1] != width:
+        raise ValueError(f"{name}: expected [N, {width}] rows, got {tuple(table.shape)}")
+    if geom_rows.ndim != 2 or geom_rows.shape[1] != GEOM_ROW_WIDTH:
+        raise ValueError(
+            f"{name}: rows must be [T, {GEOM_ROW_WIDTH}], got {tuple(geom_rows.shape)}"
+        )
+    if o.shape != d.shape or o.shape[-1] != 3:
+        raise ValueError(f"{name}: o/d must be [..., 3] of one shape")
+    for t in (table, geom_rows, o, d):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if o.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {o.device}")
+
+
+def launch_walk(entry: str, head: tuple, o, d, ray_arg, outs, work) -> None:
+    """One launch of a walking kernel on CUDA tensors. The C entry takes
+    ``head`` (its tables, as pointers, and their sizes), o, d, ``ray_arg``
+    (the scene-box cap or t_max; None where it takes neither), the ray
+    count, ``outs``, the optional [R, 2] int32 ``work`` counts (NULL: the
+    timed variant) and the stream."""
+    if o.device.type != "cuda":
+        raise ValueError(f"{entry}: the kernel takes CUDA tensors, got {o.device}")
+    n = o.numel() // 3
+    if work is not None and (work.dtype != torch.int32 or tuple(work.shape) != (n, 2)):
+        raise ValueError(f"{entry}: work must be int32 [{n}, 2]")
+    tables = tuple(x for x in head if isinstance(x, torch.Tensor))
+    extra = () if ray_arg is None else (ray_arg,)
+    check_tensors(entry, *tables, o, d, *extra, *outs, *(() if work is None else (work,)))
+    lib = library()
+    if n == 0:
+        return
+    with torch.cuda.device(o.device):
+        err = getattr(lib, entry)(
+            *(x.data_ptr() if isinstance(x, torch.Tensor) else x for x in head),
+            o.data_ptr(), d.data_ptr(), *(x.data_ptr() for x in extra), n,
+            *(x.data_ptr() for x in outs), None if work is None else work.data_ptr(),
+            stream(o.device),
+        )
+    check(entry, err)
+
+
+def surface_outputs(batch, device):
+    """Empty (t, tri, normal, uv, mat_id) of a resolving surface kernel (8, 10)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.empty(batch, **f32), torch.empty(batch, **i32), torch.empty(batch + (3,), **f32),
+            torch.empty(batch + (2,), **f32), torch.empty(batch, **i32))
+
+
+def surface_dict(t, tri, normal, uv, mat) -> dict:
+    """A resolving surface kernel's outputs as the JAX package returns them."""
+    hit = tri >= 0
+    return {"t": t, "hit": hit, "normal": normal, "uv": uv, "mat_id": mat,
+            "tri": torch.where(hit, tri, -1)}

@@ -1,7 +1,7 @@
 """Big-scene closest-hit and any-hit over BVH-ordered clusters (port of
 strolle_tpu/ops/pallas/stream_kernels.py: ``stream_trace_surface_pallas``
-and ``stream_trace_anyhit_pallas``, with the cluster host code of
-strolle_tpu/ops/pallas/cluster_kernels.py).
+and ``stream_trace_anyhit_pallas``; the cluster rows come from
+cluster_kernels.py, as the JAX package's do).
 
 Geometry in BVH order is cut into clusters of CLUSTER_TRIS consecutive
 triangles, each cut again into SUB sub-blocks of SUB_TRIS. A ray walks
@@ -26,56 +26,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..intersect import ray_triangle_edges
+from ..intersect import ray_triangle_edges, safe_inv_dir, slab
 from . import cuda_lib
+from .cluster_kernels import CLUSTER_TRIS, check_clusters
+from .cluster_kernels import clusterize_bvh, num_clusters  # noqa: F401
 
-#: Triangles per cluster (a uniform partition of the BVH-ordered rows).
-CLUSTER_TRIS = 256
 #: Sub-blocks per cluster, and triangles per sub-block.
 SUB = 8
 SUB_TRIS = CLUSTER_TRIS // SUB
-#: Triangle row width (``trace_kernels.pack_geometry``); the walk reads
-#: v0, e1, e2 (columns 0:9).
-ROW_WIDTH = 28
 #: The scene-box cap's scale and offset, as the float32 values the JAX
 #: package multiplies and adds.
 _CAP_SCALE = float(np.float32(1.0001))
 _CAP_OFFSET = float(np.float32(1e-4))
-
-
-def num_clusters(num_tris: int) -> int:
-    return -(-max(num_tris, 1) // CLUSTER_TRIS)
-
-
-def clusterize_bvh(bvh, num_tris: int, positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Geometry in BVH order -> [K, 8] rows: bmin(3) bmax(3) first count.
-
-    Cluster k covers rows [k*CLUSTER_TRIS, (k+1)*CLUSTER_TRIS); the rows
-    past the last triangle replicate it, so the last box stays tight.
-    ``positions`` [T, 3, 3] are required: the JAX package's fallback to
-    the BVH's leaf boxes is not ported."""
-    if positions is None:
-        raise NotImplementedError(
-            "clusterize_bvh from the BVH's leaf boxes alone is not ported; pass positions"
-        )
-    k = num_clusters(num_tris)
-    t = positions.shape[0]
-    v = positions.reshape(t, 9)
-    pad = k * CLUSTER_TRIS - t
-    if pad:
-        v = torch.cat([v, v[-1:].expand(pad, 9)])
-    v = v.reshape(k, CLUSTER_TRIS, 3, 3)
-    firsts = torch.arange(k, dtype=torch.int32, device=positions.device) * CLUSTER_TRIS
-    counts = torch.clamp(num_tris - firsts, max=CLUSTER_TRIS)
-    return torch.cat(
-        [
-            v.amin(dim=(1, 2)),
-            v.amax(dim=(1, 2)),
-            firsts.to(torch.float32)[:, None],
-            counts.to(torch.float32)[:, None],
-        ],
-        dim=-1,
-    )
 
 
 def sub_aabbs(clus_rows: torch.Tensor, geom_rows: torch.Tensor) -> torch.Tensor:
@@ -97,22 +59,6 @@ def sub_aabbs(clus_rows: torch.Tensor, geom_rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi, lo.new_zeros((k * SUB, 2))], dim=-1)
 
 
-def inv_dirs(d: torch.Tensor) -> torch.Tensor:
-    """1 / d per component, with |d| < 1e-20 replaced by +-1e-20."""
-    tiny = 1e-20
-    return 1.0 / torch.where(torch.abs(d) < tiny, torch.where(d >= 0, tiny, -tiny), d)
-
-
-def _slab(box: torch.Tensor, o: torch.Tensor, inv: torch.Tensor, best: torch.Tensor):
-    """Slab test of rays [R, 3] against one box row [8]: the ray enters
-    the box before ``best`` [R] (tn <= tf, tf >= 0, tn <= best)."""
-    t0 = (box[0:3] - o) * inv
-    t1 = (box[3:6] - o) * inv
-    tn = torch.minimum(t0, t1).amax(dim=-1)
-    tf = torch.maximum(t0, t1).amin(dim=-1)
-    return (tn <= tf) & (tf >= 0.0) & (tn <= best)
-
-
 def scene_tcap(clus_rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """Each ray's exit distance from the scene box (the union of the
     cluster boxes) times 1.0001 plus 1e-4, or 0 for a ray that misses it.
@@ -121,7 +67,7 @@ def scene_tcap(clus_rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> tor
     XLA compiles the JAX package's."""
     lo = clus_rows[:, 0:3].amin(dim=0)
     hi = clus_rows[:, 3:6].amax(dim=0)
-    inv = inv_dirs(d)
+    inv = safe_inv_dir(d)
     t0 = (lo - o) * inv
     t1 = (hi - o) * inv
     tn = torch.minimum(t0, t1).amax(dim=-1)
@@ -135,7 +81,7 @@ def _walk(clus_rows, sub_rows, geom_rows, o, d, best, work, on_subblock):
     is the slab tests' bound, updated in place by ``on_subblock(ids,
     first_row, rows)``, which returns the rays that leave the walk.
     ``work`` [R, 2] (optional) counts box tests and triangle tests."""
-    inv = inv_dirs(d)
+    inv = safe_inv_dir(d)
     live = ((best > 0.0) & (d != 0.0).any(dim=-1)).nonzero()[:, 0]
     n_rows = geom_rows.shape[0]
     for k in range(clus_rows.shape[0]):
@@ -143,13 +89,15 @@ def _walk(clus_rows, sub_rows, geom_rows, o, d, best, work, on_subblock):
             break
         if work is not None:
             work[live, 0] += 1
-        ids = live[_slab(clus_rows[k], o[live], inv[live], best[live])]
+        box = clus_rows[k]
+        ids = live[slab(box[0:3], box[3:6], o[live], inv[live], best[live])[0]]
         for s in range(SUB):
             if ids.numel() == 0:
                 break
             if work is not None:
                 work[ids, 0] += 1
-            ids2 = ids[_slab(sub_rows[k * SUB + s], o[ids], inv[ids], best[ids])]
+            sub = sub_rows[k * SUB + s]
+            ids2 = ids[slab(sub[0:3], sub[3:6], o[ids], inv[ids], best[ids])[0]]
             first = k * CLUSTER_TRIS + s * SUB_TRIS
             if ids2.numel() == 0 or first >= n_rows:
                 continue
@@ -228,45 +176,9 @@ def clipped_t_max(clus_rows, o, d, t_max) -> torch.Tensor:
     return torch.minimum(t_max, scene_tcap(clus_rows, o, d)).contiguous()
 
 
-def _check_inputs(name, clus_rows, geom_rows, o, d):
-    if clus_rows.ndim != 2 or clus_rows.shape[1] != 8:
-        raise ValueError(f"{name}: cluster rows must be [K, 8], got {tuple(clus_rows.shape)}")
-    if geom_rows.ndim != 2 or geom_rows.shape[1] != ROW_WIDTH:
-        raise ValueError(f"{name}: rows must be [T, {ROW_WIDTH}], got {tuple(geom_rows.shape)}")
-    if geom_rows.shape[0] > clus_rows.shape[0] * CLUSTER_TRIS:
-        raise ValueError(f"{name}: {geom_rows.shape[0]} rows > {clus_rows.shape[0]} clusters")
-    if o.shape != d.shape or o.shape[-1] != 3:
-        raise ValueError(f"{name}: o/d must be [..., 3] of one shape")
-    for t in (clus_rows, geom_rows, o, d):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {o.device}")
-
-
-def _launch(entry: str, clus_rows, sub_rows, geom_rows, o, d, ray_arg, outs, work):
-    """One launch of a stream kernel on the CUDA tensors given."""
-    if o.device.type != "cuda":
-        raise ValueError(f"{entry}: the kernel takes CUDA tensors, got {o.device}")
-    n = o.numel() // 3
-    if work is not None and (work.dtype != torch.int32 or tuple(work.shape) != (n, 2)):
-        raise ValueError(f"{entry}: work must be int32 [{n}, 2]")
-    cuda_lib.check_tensors(entry, clus_rows, sub_rows, geom_rows, o, d, ray_arg, *outs,
-                           *(() if work is None else (work,)))
-    lib = cuda_lib.library()
-    if n == 0:
-        return
-    dev = o.device
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            clus_rows.data_ptr(), sub_rows.data_ptr(), clus_rows.shape[0],
-            geom_rows.data_ptr(), geom_rows.shape[0],
-            o.data_ptr(), d.data_ptr(), ray_arg.data_ptr(), n,
-            *(x.data_ptr() for x in outs),
-            None if work is None else work.data_ptr(),
-            cuda_lib.stream(dev),
-        )
-    cuda_lib.check(entry, err)
+def launch_head(clus_rows, sub_rows, geom_rows) -> tuple:
+    """The arguments kernels 5 and 6 take before the rays."""
+    return (clus_rows, sub_rows, clus_rows.shape[0], geom_rows, geom_rows.shape[0])
 
 
 def stream_trace_surface(clus_rows, geom_rows, o, d, work=None) -> dict:
@@ -276,7 +188,7 @@ def stream_trace_surface(clus_rows, geom_rows, o, d, work=None) -> dict:
     run the plain version; CUDA tensors launch kernel 5. ``work`` [R, 2]
     int32 (optional) receives each ray's box and triangle tests, from
     the kernel's counting variant on the card."""
-    _check_inputs("stream_trace_surface", clus_rows, geom_rows, o, d)
+    check_clusters("stream_trace_surface", clus_rows, geom_rows, o, d)
     sub_rows = sub_aabbs(clus_rows, geom_rows).contiguous()
     tcap = scene_tcap(clus_rows, o, d).contiguous()
     if o.device.type == "cpu":
@@ -288,8 +200,9 @@ def stream_trace_surface(clus_rows, geom_rows, o, d, work=None) -> dict:
         tri = torch.empty(batch, dtype=torch.int32, device=o.device)
         u = torch.empty_like(t)
         v = torch.empty_like(t)
-        _launch("strolle_stream_trace_surface", clus_rows, sub_rows, geom_rows, o, d, tcap,
-                (t, tri, u, v), work)
+        cuda_lib.launch_walk("strolle_stream_trace_surface",
+                             launch_head(clus_rows, sub_rows, geom_rows), o, d, tcap,
+                             (t, tri, u, v), work)
         cuda_lib.count_launch("stream_trace_surface")
     hit = tri >= 0
     return {"t": t, "hit": hit, "u": u, "v": v, "tri": torch.where(hit, tri, -1)}
@@ -300,13 +213,13 @@ def stream_trace_anyhit(clus_rows, geom_rows, o, d, t_max, work=None) -> torch.T
     where a triangle is hit before min(t_max, scene-box exit). CPU tensors
     run the plain version; CUDA tensors launch kernel 6. ``work`` as in
     ``stream_trace_surface``."""
-    _check_inputs("stream_trace_anyhit", clus_rows, geom_rows, o, d)
+    check_clusters("stream_trace_anyhit", clus_rows, geom_rows, o, d)
     sub_rows = sub_aabbs(clus_rows, geom_rows).contiguous()
     tm = clipped_t_max(clus_rows, o, d, t_max)
     if o.device.type == "cpu":
         return stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, tm, work)
     occ = torch.empty(o.shape[:-1], dtype=torch.bool, device=o.device)
-    _launch("strolle_stream_trace_anyhit", clus_rows, sub_rows, geom_rows, o, d, tm, (occ,),
-            work)
+    cuda_lib.launch_walk("strolle_stream_trace_anyhit",
+                         launch_head(clus_rows, sub_rows, geom_rows), o, d, tm, (occ,), work)
     cuda_lib.count_launch("stream_trace_anyhit")
     return occ

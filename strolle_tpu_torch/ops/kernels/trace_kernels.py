@@ -92,13 +92,12 @@ def trace_anyhit_brute_plain(rows, o, d, t_max, chunk: int = PLAIN_CHUNK):
     return occ.reshape(batch)
 
 
-def trace_surface_plain(rows, o, d, chunk: int = PLAIN_CHUNK) -> dict:
-    """Plain version of kernel 4: kernel A's closest hit over the [T, 28]
-    rows, then the winner's interpolated normal (flipped by the sign of
-    the Möller-Trumbore determinant, normalised with
-    rsqrt(max(|n|^2, 1e-20))), uv and material id, in the TPU kernel's
-    operation order. A miss gives t = +inf, tri = -1 and zeros."""
-    t, tri, u, v = trace_closest_brute_plain(rows[:, :12], o, d, chunk)
+def resolve_winner(rows, d, tri, u, v):
+    """The winner's attributes from its [28] row, as kernels 4, 8 and 10
+    resolve them: the interpolated normal, flipped by the sign of the
+    Möller-Trumbore determinant and normalised by 1 / sqrt(max(|n|^2,
+    1e-20)), the interpolated uv and the material id; zeros where tri < 0.
+    Returns (normal [..., 3], uv [..., 2], mat_id)."""
     r = rows[torch.clamp(tri, min=0).long()]  # [..., 28]
     some = (tri >= 0)[..., None]
     det = fma_dot(r[..., 3:6], fma_cross(d, r[..., 6:9]))
@@ -108,14 +107,21 @@ def trace_surface_plain(rows, o, d, chunk: int = PLAIN_CHUNK) -> dict:
     w = 1.0 - bu - bv
     n = w * r[..., 9:12] + bu * r[..., 12:15] + bv * r[..., 15:18]
     n2 = n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2]
-    flip = dsign * torch.rsqrt(torch.clamp(n2, min=1e-20))[..., None]
+    # a correctly rounded sqrt and division on both devices (the CUDA
+    # kernels do the same), where the JAX kernels take rsqrt
+    flip = dsign * (1.0 / torch.sqrt(torch.clamp(n2, min=1e-20)))[..., None]
     uv = w * r[..., 18:20] + bu * r[..., 20:22] + bv * r[..., 22:24]
-    return {
-        "t": t, "tri": tri, "u": u, "v": v,
-        "normal": torch.where(some, n * flip, 0.0),
-        "uv": torch.where(some, uv, 0.0),
-        "mat_id": torch.where(some[..., 0], r[..., 24].to(torch.int32), 0),
-    }
+    return (torch.where(some, n * flip, 0.0), torch.where(some, uv, 0.0),
+            torch.where(some[..., 0], r[..., 24].to(torch.int32), 0))
+
+
+def trace_surface_plain(rows, o, d, chunk: int = PLAIN_CHUNK) -> dict:
+    """Plain version of kernel 4: kernel A's closest hit over the [T, 28]
+    rows, then the winner's attributes (``resolve_winner``). A miss gives
+    t = +inf, tri = -1 and zeros."""
+    t, tri, u, v = trace_closest_brute_plain(rows[:, :12], o, d, chunk)
+    normal, uv, mat_id = resolve_winner(rows, d, tri, u, v)
+    return {"t": t, "tri": tri, "u": u, "v": v, "normal": normal, "uv": uv, "mat_id": mat_id}
 
 
 def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,

@@ -2,14 +2,22 @@
 strolle_tpu/ops/trace.py).
 
 Scenes of up to BRUTE_FORCE_MAX_TRIS triangles go through the
-brute-force kernels of ops/kernels/trace_kernels.py; bigger scenes, once
-``bvh.scene_with_bvh`` has built their clusters, through the stream
-kernels of ops/kernels/stream_kernels.py (the JAX package's default
-``BIG_SCENE_STRATEGY = "stream"``). Each runs CUDA on the card and its
-plain version on the CPU. The JAX package's other big-scene strategies
-("cluster", "packet", "jnp"), its alpha restart loop and its mesh
-sharding context are later slices of the port and raise
-NotImplementedError here.
+brute-force kernels of ops/kernels/trace_kernels.py. Bigger scenes with
+a BVH (``bvh.scene_with_bvh``) take the route that BIG_SCENE_STRATEGY
+selects, as in the JAX package: "stream" (the default) the stream
+kernels of ops/kernels/stream_kernels.py; "cluster" the cluster kernels
+of ops/kernels/cluster_kernels.py (or the stream kernels for a scene
+they do not take); "packet" and "jnp" the BVH kernels of
+ops/kernels/bvh_kernels.py where the scene fits them, else the torch
+traversal of bvh/traverse.py, which is also their closest-hit route
+(``trace_closest``). Each kernel runs CUDA on the card and its plain
+version on the CPU. Set the strategy as in the JAX package::
+
+    import strolle_tpu_torch.ops.trace as trace
+    trace.BIG_SCENE_STRATEGY = "packet"
+
+A big scene without a BVH, the alpha restart loop and the mesh sharding
+context are later slices of the port and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -18,35 +26,66 @@ import math
 
 import torch
 
+from ..bvh.traverse import trace_anyhit_bvh, trace_closest_bvh
 from ..scene.types import Scene
 from .hit import NUDGE_OFFSET, Surface, TriangleHit, material_at, surface_at
 from .intersect import ray_triangle
+from .kernels import bvh_kernels as bk
+from .kernels import cluster_kernels as ck
 from .kernels import stream_kernels as sk
 from .kernels import trace_kernels as tk
 
 BRUTE_FORCE_MAX_TRIS = tk.MAX_TRIS
-#: The big-scene strategy; only the JAX package's default is ported.
+#: The big-scene strategy: "stream", "cluster", "packet" or "jnp", as the
+#: JAX package names them (strolle_tpu/ops/trace.py BIG_SCENE_STRATEGY).
 BIG_SCENE_STRATEGY = "stream"
+#: The JAX package's VMEM budget for its cluster and BVH kernels, kept
+#: here as a routing rule only: it decides which scenes take kernels 8-11,
+#: so that a scene takes the route it takes in the JAX package. It is no
+#: limit of the H100, whose kernels read their rows through the
+#: read-only path.
+_KERNEL_ROUTE_BUDGET = 12 * 2**20
 
 
 def is_big(scene: Scene) -> bool:
     return scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS
 
 
+def _bvh_kernel_fits(scene: Scene) -> bool:
+    n_nodes = scene.bvh.child.shape[0]
+    n_rows = scene.geometry.num_triangles
+    return (n_nodes * 16 + n_rows * 28) * 4 <= _KERNEL_ROUTE_BUDGET
+
+
+def _cluster_kernel_fits(scene: Scene) -> bool:
+    n_rows = scene.geometry.num_triangles
+    return (ck.num_clusters(n_rows) * 8 + n_rows * 28) * 4 <= _KERNEL_ROUTE_BUDGET
+
+
+def _stream_route(scene: Scene) -> bool:
+    """Does a big scene take the stream kernels (5, 6)?"""
+    return BIG_SCENE_STRATEGY == "stream" or (
+        BIG_SCENE_STRATEGY == "cluster" and not _cluster_kernel_fits(scene)
+    )
+
+
+def cluster_rows(scene: Scene) -> torch.Tensor:
+    """The scene's [K, 8] cluster rows: prebuilt by ``bvh.scene_with_bvh``,
+    or made here from its BVH-ordered positions."""
+    if scene.clusters is not None:
+        return scene.clusters.detach()
+    return ck.clusterize_bvh(scene.bvh, scene.geometry.num_triangles,
+                             scene.geometry.positions.detach())
+
+
 def check_scene_supported(scene: Scene) -> None:
     """Raises for the scene features that later slices of the port add."""
-    if is_big(scene):
-        if scene.clusters is None:
-            raise NotImplementedError(
-                f"{scene.geometry.num_triangles} triangles > {BRUTE_FORCE_MAX_TRIS} without "
-                "clusters: build them with bvh.scene_with_bvh (the torch BVH traversal of "
-                "strolle_tpu/bvh/traverse.py is not ported)"
-            )
-        if BIG_SCENE_STRATEGY != "stream":
-            raise NotImplementedError(
-                f"BIG_SCENE_STRATEGY={BIG_SCENE_STRATEGY!r}: the cluster, packet and jnp "
-                "strategies are later slices of the port (ROADMAP.md section 2, kernels 8-11)"
-            )
+    if is_big(scene) and scene.bvh is None:
+        raise NotImplementedError(
+            f"{scene.geometry.num_triangles} triangles > {BRUTE_FORCE_MAX_TRIS} without a "
+            "BVH: build it with bvh.scene_with_bvh (the JAX package's brute-force route for "
+            "big scenes is not ported)"
+        )
     if scene.has_alpha:
         raise NotImplementedError(
             "alpha-blended materials (the alpha restart loop) are a later slice of the port "
@@ -98,7 +137,7 @@ def trace_anyhit_brute(scene: Scene, o, d, t_max) -> torch.Tensor:
 def _stream_closest(scene: Scene, o, d) -> dict:
     """Kernel 5 on detached rays."""
     return sk.stream_trace_surface(
-        scene.clusters.detach(),
+        cluster_rows(scene),
         packed_geom_rows(scene).detach(),
         o.detach().contiguous(),
         d.detach().contiguous(),
@@ -106,12 +145,16 @@ def _stream_closest(scene: Scene, o, d) -> dict:
 
 
 def _trace_closest_kernel(scene: Scene, o, d) -> TriangleHit:
-    """The kernel (A, or 5 for a big scene) finds the winning triangle on
-    detached rays; t/u/v are then recomputed through that triangle with
+    """The winning triangle on detached rays (kernel A, or for a big scene
+    kernel 5 under "stream" and the torch BVH traversal under the other
+    strategies); t/u/v are then recomputed through that triangle with
     plain tensor ops, so gradients with respect to rays and vertices
     flow."""
     if is_big(scene):
-        tri = _stream_closest(scene, o, d)["tri"]
+        if BIG_SCENE_STRATEGY == "stream":
+            tri = _stream_closest(scene, o, d)["tri"]
+        else:
+            tri = trace_closest_bvh(scene, o.detach(), d.detach()).tri
     else:
         rows = packed_tri_rows(scene).detach()
         _, tri, _, _ = tk.trace_closest_brute(
@@ -136,18 +179,25 @@ def trace_closest(scene: Scene, o: torch.Tensor, d: torch.Tensor) -> TriangleHit
 
 def trace_anyhit(scene: Scene, o: torch.Tensor, d: torch.Tensor, t_max) -> torch.Tensor:
     """Occlusion query: True where any triangle lies within t_max (kernel
-    B, or kernel 6 for a big scene, on detached rays; a boolean carries no
-    gradient)."""
+    B; for a big scene kernel 6, 9 or 11 or the torch BVH traversal, by
+    the strategy; on detached rays: a boolean carries no gradient)."""
     check_scene_supported(scene)
     t_max = torch.broadcast_to(torch.as_tensor(t_max, device=o.device), o.shape[:-1])
     t_max = t_max.detach().to(torch.float32).contiguous()
     o = o.detach().contiguous()
     d = d.detach().contiguous()
-    if is_big(scene):
-        return sk.stream_trace_anyhit(
-            scene.clusters.detach(), packed_geom_rows(scene).detach(), o, d, t_max
-        )
-    return tk.trace_anyhit_brute(packed_tri_rows(scene).detach(), o, d, t_max)
+    if not is_big(scene):
+        return tk.trace_anyhit_brute(packed_tri_rows(scene).detach(), o, d, t_max)
+    if _stream_route(scene):
+        return sk.stream_trace_anyhit(cluster_rows(scene), packed_geom_rows(scene).detach(), o,
+                                      d, t_max)
+    if BIG_SCENE_STRATEGY == "cluster":
+        return ck.cluster_trace_anyhit(cluster_rows(scene), packed_geom_rows(scene).detach(), o,
+                                       d, t_max)
+    if _bvh_kernel_fits(scene):
+        return bk.bvh_trace_anyhit(scene.bvh.node_rows, packed_geom_rows(scene).detach(),
+                                   o, d, t_max)
+    return trace_anyhit_bvh(scene, o, d, t_max)
 
 
 def trace_surface(
@@ -163,29 +213,39 @@ def trace_surface(
     default) and ``True`` take the fused route. For a small scene that is
     kernel 4 (CUDA on the card, its plain version on CPU tensors), which
     resolves the winner's normal, uv and material id itself; for a big
-    scene kernel 5 finds the winner and ``surface_at`` resolves it.
-    ``False`` takes trace_closest + surface_at, whose t/u/v are recomputed
-    through the winner with tensor ops so that gradients flow (the
-    differentiable path). ``regularize`` clamps roughness for indirect
-    bounces."""
+    scene the strategy's kernel: kernel 8 ("cluster") or 10 ("packet",
+    "jnp") resolve the winner as kernel 4 does, kernel 5 ("stream", or
+    "cluster" on a scene the cluster kernels do not take) finds it and
+    ``surface_at`` resolves it; a scene too big for kernel 10 takes
+    trace_closest + surface_at. ``False`` takes trace_closest +
+    surface_at, whose t/u/v are recomputed through the winner with tensor
+    ops so that gradients flow (the differentiable path). ``regularize``
+    clamps roughness for indirect bounces."""
     check_scene_supported(scene)
     if use_pallas is False:
         hit = trace_closest(scene, o, d)
         return surface_at(scene, o, d, hit, regularize=regularize)
-    if is_big(scene):
+    if is_big(scene) and _stream_route(scene):
         out = _stream_closest(scene, o, d)
         hit = TriangleHit(
             t=torch.where(out["hit"], out["t"], math.inf), tri=out["tri"], u=out["u"],
             v=out["v"],
         )
         return surface_at(scene, o, d, hit, regularize=regularize)
-
-    out = tk.trace_surface(
-        packed_geom_rows(scene).detach(),
-        o.detach().contiguous(),
-        d.detach().contiguous(),
-    )
-    some = out["tri"] >= 0
+    rows = packed_geom_rows(scene).detach()
+    od = (o.detach().contiguous(), d.detach().contiguous())
+    if not is_big(scene):
+        out = tk.trace_surface(rows, *od)
+        some = out["tri"] >= 0
+    elif BIG_SCENE_STRATEGY == "cluster":
+        out = ck.cluster_trace_surface(cluster_rows(scene), rows, *od)
+        some = out["hit"]
+    elif _bvh_kernel_fits(scene):
+        out = bk.bvh_trace_surface(scene.bvh.node_rows, rows, *od)
+        some = out["hit"]
+    else:
+        hit = trace_closest(scene, o, d)
+        return surface_at(scene, o, d, hit, regularize=regularize)
     t = torch.where(some, out["t"], 0.0)
     normal = out["normal"]
     mat_id = torch.where(some, out["mat_id"], 0)

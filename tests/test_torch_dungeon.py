@@ -1,10 +1,11 @@
 """The textured dungeon (8,393 triangles, a 2048x2048 atlas, the sun at
 altitude 0.35) in the port against the JAX package on the CPU: loading,
 PNG decoding, atlas sampling, the textured surface, the realtime
-prelude with the sky, one reference-mode sample with the sky, and a
+prelude with the sky, reference-mode samples with the sky (one at 32x24,
+one at 16x12 through both routes of the staged loop), and a
 free-running realtime frame. The JAX dungeon is built once per test
-process and handed over through convert.py; two JAX programs are
-compiled (the prelude and the reference sample)."""
+process and handed over through convert.py; three JAX programs are
+compiled (the prelude and two reference samples)."""
 
 import dataclasses
 import io
@@ -12,6 +13,7 @@ import json
 import struct
 import zipfile
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,6 +201,42 @@ def test_trace_sample_with_sky_matches_jax(dg):
     diff = np.abs(got - want).max(axis=-1)
     assert (diff <= 1e-3).mean() >= MIN_AGREE, (diff > 1e-3).mean()
     assert abs(got.mean() - want.mean()) <= 0.01 * want.mean()
+    assert got.mean() > 1e-3
+
+
+def test_staged_loop_fused_route_matches_jax(dg, monkeypatch):
+    """The staged loop with use_pallas=None, the JAX package's default:
+    every surface takes the fused route (kernel 5 + surface_at under
+    "stream"), none trace_closest, and the sample (16x12, depth 1, the
+    sky) is the JAX package's staged loop's (jitted; on the CPU it takes
+    its BVH traversal) within the tolerances above; use_pallas=False
+    takes trace_closest for both bounces and gives the same image."""
+    from strolle_tpu_torch.ops import trace as trace_mod
+
+    jscene, scene, _, _, luts, jluts = dg
+    jcam = jax_dungeon_camera(16, 12)
+    cam = convert.camera_from_arrays(np_tree(jcam), device="cpu")
+    closest = []
+    real = trace_mod.trace_closest
+
+    def record(*args):
+        closest.append(args[1].shape)
+        return real(*args)
+
+    monkeypatch.setattr(trace_mod, "trace_closest", record)
+    got = trace_sample(scene, cam, 5, depth=1, include_sky=True, luts=luts, use_pallas=None)
+    assert closest == []
+    split = trace_sample(scene, cam, 5, depth=1, include_sky=True, luts=luts, use_pallas=False)
+    assert len(closest) == 2
+    want = np.asarray(jax.jit(
+        lambda s, c, l: jax_trace_sample(s, c, jnp.uint32(5), depth=1, include_sky=True,
+                                         use_pallas=None, luts=l)
+    )(jscene, jcam, jluts))
+    for img in (got.numpy(), split.numpy()):
+        assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+        diff = np.abs(img - want).max(axis=-1)
+        assert (diff <= 1e-3).mean() >= MIN_AGREE, (diff > 1e-3).mean()
+        assert abs(img.mean() - want.mean()) <= 0.01 * want.mean()
     assert got.mean() > 1e-3
 
 

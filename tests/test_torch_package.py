@@ -1,7 +1,6 @@
 """The port's package boundaries: no JAX inside it, the card by default,
 and a loud refusal of the paths that later slices port (the alpha
-restart loop, the torch BVH traversal, the non-default big-scene
-strategies)."""
+restart loop, big scenes without a BVH, the mesh sharding context)."""
 
 import ast
 from pathlib import Path
@@ -36,6 +35,10 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "strolle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    pkg = ROOT / "strolle_tpu_torch"
+    for module in ("bvh/traverse.py", "ops/kernels/cluster_kernels.py",
+                   "ops/kernels/bvh_kernels.py", "ops/trace.py"):
+        assert pkg / module in files, module
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -59,7 +62,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
             call()
 
 
-def test_unported_paths_raise(monkeypatch):
+def test_unported_paths_raise():
     from strolle_tpu_torch.ops import trace as trace_mod
     from strolle_tpu_torch.scene.types import Geometry
 
@@ -67,8 +70,8 @@ def test_unported_paths_raise(monkeypatch):
     cam = cornell_camera(4, 4, device="cpu")
     with pytest.raises(ValueError, match="megakernel"):
         trace_sample(scene, cam, 1, depth=1, include_sky=True, use_megakernel=True)
-    # a big scene without the clusters of bvh.scene_with_bvh (the torch
-    # BVH traversal is not ported), and the alpha restart loop
+    # a big scene without a BVH (the JAX package's brute-force route for
+    # it is not ported), and the alpha restart loop
     g = scene.geometry
     big = scene.replace(geometry=Geometry(
         *(torch.cat([getattr(g, f)] * 29) for f in ("positions", "normals", "uvs", "tangents",
@@ -81,16 +84,19 @@ def test_unported_paths_raise(monkeypatch):
     o = torch.zeros(4, 3)
     with pytest.raises(NotImplementedError, match="1024"):
         trace_kernels.trace_closest_brute(torch.zeros(1032, 12), o, o)
-    for use_pallas in (None, True, False):
-        for bad in (big, scene.replace(has_alpha=True)):
-            with pytest.raises(NotImplementedError):
-                trace_surface(bad, o, o, use_pallas=use_pallas)
+    for strategy in ("stream", "cluster", "packet", "jnp"):
+        trace_mod.BIG_SCENE_STRATEGY = strategy
+        try:
+            for use_pallas in (None, True, False):
+                for bad in (big, scene.replace(has_alpha=True)):
+                    with pytest.raises(NotImplementedError):
+                        trace_surface(bad, o, o, use_pallas=use_pallas)
+                    with pytest.raises(NotImplementedError):
+                        trace_mod.trace_anyhit(bad, o, o, 1.0)
+        finally:
+            trace_mod.BIG_SCENE_STRATEGY = "stream"
     with pytest.raises(NotImplementedError, match="multi-device"):
         trace_mod.trace_rows_sharded(None)
-    # the JAX package's non-default big-scene strategies
-    monkeypatch.setattr(trace_mod, "BIG_SCENE_STRATEGY", "cluster")
-    with pytest.raises(NotImplementedError, match="cluster"):
-        trace_surface(big.replace(clusters=torch.zeros(5, 8)), o, o)
     with pytest.raises(NotImplementedError, match="1024"):
         ref_kernel.trace_sample_megakernel(
             torch.zeros(1032, 24), torch.zeros(1, 12), torch.zeros(1, 13), 1,

@@ -137,8 +137,9 @@ def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
          (torch.empty(8, dtype=torch.bool),)),
     ):
         with pytest.raises(ValueError, match="CUDA"):
-            sk._launch(entry, clus, subs, trows, o, d, ray_arg, outs, None)
-    with pytest.raises(ValueError, match=r"\[K, 8\]"):
+            cuda_lib.launch_walk(entry, sk.launch_head(clus, subs, trows), o, d, ray_arg, outs,
+                                 None)
+    with pytest.raises(ValueError, match=r"\[N, 8\]"):
         sk.stream_trace_surface(torch.zeros(4, 6), trows, o, d)
     with pytest.raises(ValueError, match="clusters"):
         sk.stream_trace_surface(clus[:2], trows, o, d)

@@ -1,9 +1,10 @@
 """Helpers of the port's tests: JAX package objects as the nested numpy
 dicts that strolle_tpu_torch.convert takes, a smooth-normal Cornell
-built the same way in both packages, and one torch thread per test
-process."""
+built the same way in both packages, the JAX tests' triangle soup in
+both packages, and one torch thread per test process."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,3 +47,36 @@ def perturbed_normals(normals, seed: int = 4) -> np.ndarray:
     rs = np.random.RandomState(seed)
     n = np.asarray(normals) + rs.normal(0.0, 0.08, np.shape(normals)).astype(np.float32)
     return (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def soup_scenes(n_tris: int = 256 * 3 + 57):
+    """The JAX tests' triangle soup (tests/test_bvh_kernels.py::_soup_scene:
+    four clusters, the last one ragged, and a BVH from the JAX package's
+    numpy builder) and the port's copy of it, with the kernels' rows
+    packed by the JAX package: (JAX scene, port scene, JAX node rows, JAX
+    [T', 28] rows). Built once per test process."""
+    return _soup_scenes(n_tris)
+
+
+@functools.cache
+def _soup_scenes(n_tris: int):
+    from strolle_tpu_torch import convert
+    from tests.test_bvh_kernels import _packed, _soup_scene
+
+    js = _soup_scene(n_tris=n_tris)
+    nodes, rows = _packed(js)
+    return js, convert.scene_from_arrays(scene_arrays(js), device="cpu"), nodes, rows
+
+
+def soup_rays(name: str):
+    """Seeded rays of the soup tests (numpy): from all around the soup
+    (most miss) or from inside it (most hit), 256 of each."""
+    from tests.test_bvh_kernels import _rays
+
+    o, d = _rays(256, seed=1) if name == "around" else _rays(256, seed=2, spread=3.0)
+    return np.asarray(o), np.asarray(d)
+
+
+def tt(a) -> torch.Tensor:
+    """A numpy or JAX array as a CPU tensor."""
+    return torch.tensor(np.asarray(a))
