@@ -43,13 +43,27 @@ Run from the root of the repository:  python3 chip_smoke.py
    and "packet" (kernels 10 and 11 only), counted the same way, with the
    same realtime check and the share of primary triangles that differ
    from the "stream" route's; times trace_closest under "packet" (the
-   torch BVH traversal).
+   torch BVH traversal). Then kernel 7 (the fused spatial probe): holds
+   both modes against the plain version, oy/ox/found and jac bit-equal,
+   on the DI and GI spatial passes' own inputs of a Cornell and a dungeon
+   realtime frame (DI on frame 0, GI on frame 1) and on a seeded blocky
+   stack, at the default tuning; with STROLLE_PROBE_KERNEL=1 drives 18
+   realtime frames on each scene, counted: kernel 7 once a frame in DI
+   mode and on frames 1 and 3 of each GI cycle in GI mode, the other
+   kernels as with the switch off, the mean image within the reference
+   check and within 1% of the switch-off run on the same seeds; checks
+   that DI spatial gives the tensor probe's output on frame 0's inputs;
+   runs one frame under each RenderConfig switch (needs_gi=False,
+   needs_di=False, denoise=False) with kernel 7's launches following
+   them; renders the dungeon's BVH heatmap.
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler. A walking kernel's
    bound (5, 6, 8-11) counts the fewest box and triangle tests that any
    of the walks counted here makes on the same rays; its own walk's
-   count gives walk_bound_ms beside it.
+   count gives walk_bound_ms beside it. Kernel 7 alone in both modes on
+   the Cornell frame's inputs, and the DI and GI stages on both scenes
+   with the probe switch off, on, on, off.
 
 Prints a "kernels" JSON line and, last, {"ok": true, "device": ...}.
 Any failed check raises: the script then exits non-zero and prints no
@@ -63,10 +77,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -106,6 +122,16 @@ FLOPS_RESOLVE = 55
 #: 6 multiplies, 10 min/max, 3 compares.
 FLOPS_SLAB = 25
 FLOPS_SHADE = {False: 420, True: 190}
+#: Operations of one try of kernel 7 for one pixel, counted from
+#: csrc/probe_kernels.cu with a compare, select, min/max, shift, sqrt,
+#: modulo or division as 1: the PCG word 9, the done test 1, the table
+#: entry 4, two mirrors 16, the same-pixel test 3, the depth gate 4, the
+#: normal dot and its gate 6, is_some and the gate's logic 3, the level
+#: step 2, m > 0 1, the result 3 (DI: 52); GI adds two Jacobian halves
+#: of 23 (3 subtracts, |v|^2 5, sqrt, the guarded max 2, the reciprocal,
+#: 3 multiplies, the dot 5, the clamp 3) and 19 to combine, test and
+#: clamp them (117).
+OPS_PROBE_TRY = {"di": 52, "gi": 117}
 
 
 class CheckFailed(RuntimeError):
@@ -746,7 +772,8 @@ STRATEGY_KERNELS = {
     "packet": ("bvh_trace_surface", "bvh_trace_anyhit"),
 }
 ALL_KERNELS = ("trace_sample_megakernel", "trace_closest_brute", "trace_anyhit_brute",
-               "trace_surface") + tuple(k for ks in STRATEGY_KERNELS.values() for k in ks)
+               "trace_surface", "probe_spatial_di", "probe_spatial_gi") + tuple(
+    k for ks in STRATEGY_KERNELS.values() for k in ks)
 
 
 def drive_strategy(name: str, scene, cam, luts, cfg, ref1, stream_tri) -> dict:
@@ -939,6 +966,279 @@ def time_stages(scene, cam, state, seed0: int, cfg=None, luts=None) -> tuple[dic
             total[n] += ev[i].elapsed_time(ev[i + 1]) / 6
         state = rt.RenderState(frame + 1, cam, surf, di_prev, gi_prev, di_den, gi_den)
     return total, state
+
+
+
+@contextlib.contextmanager
+def probe_switch(on: bool):
+    """Runs the block with STROLLE_PROBE_KERNEL "1" (the fused probe,
+    kernel 7) or "0" (the tensor probe); restores the previous value after
+    it, also when a check fails."""
+    old = os.environ.get("STROLLE_PROBE_KERNEL")
+    os.environ["STROLLE_PROBE_KERNEL"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["STROLLE_PROBE_KERNEL"]
+        else:
+            os.environ["STROLLE_PROBE_KERNEL"] = old
+
+
+@contextlib.contextmanager
+def capture_spatial(calls: dict):
+    """Records the arguments of each DI and GI spatial pass the block runs
+    (camera, surface, reservoirs, seed, frame, tuning) under "di" and "gi":
+    the real inputs of kernel 7 on the main path."""
+    from strolle_tpu_torch.restir import di, gi
+
+    real = {"di": di.di_spatial, "gi": gi.gi_spatial}
+
+    def recorder(kind):
+        def fn(scene, camera, surf, res, seed, frame, tuning, use_pallas=None):
+            calls.setdefault(kind, []).append((camera, surf, res, seed, frame, tuning))
+            return real[kind](scene, camera, surf, res, seed, frame, tuning, use_pallas)
+        return fn
+
+    di.di_spatial, gi.gi_spatial = recorder("di"), recorder("gi")
+    try:
+        yield
+    finally:
+        di.di_spatial, gi.gi_spatial = real["di"], real["gi"]
+
+
+def spatial_inputs(scene, cam, cfg, luts, frames: int = 2) -> dict:
+    """The first ``frames`` realtime frames from a fresh state with the
+    tensor probe, recording each spatial pass's arguments: DI on frame 0,
+    GI on frame 1 (its first odd tracing frame)."""
+    from strolle_tpu_torch.models.restir import init_state, render_frame_fused
+
+    calls: dict = {}
+    state = init_state(cam, device=cam.device)
+    with probe_switch(False), capture_spatial(calls):
+        for f in range(frames):
+            _, state = render_frame_fused(scene, cam, state, 300 + f, cfg, luts)
+    check(len(calls["di"]) == frames and len(calls["gi"]) == 1, "spatial passes not captured")
+    return {"di": calls["di"][0], "gi": calls["gi"][0]}
+
+
+def probe_case(kind: str, args) -> tuple:
+    """Kernel 7's inputs (stack, dy, dx, seed, keyword arguments) for a
+    captured spatial pass, as its fused route builds them."""
+    from strolle_tpu_torch.restir import di, gi
+
+    _, surf, res, seed, _, t = args
+    if kind == "di":
+        stack, dy, dx, kw = di.probe_inputs(surf, (res.m,), seed, t.di_spatial_samples,
+                                            t.di_spatial_radius)
+    else:
+        stack, dy, dx, kw = di.probe_inputs(
+            surf, gi.probe_planes(surf, res), seed, t.gi_spatial_samples, t.gi_spatial_radius,
+            jac_reject=t.gi_jacobian_reject, jac_clamp=t.gi_jacobian_clamp)
+    return stack, dy, dx, seed, kw
+
+
+def synthetic_probe_cases(device) -> dict:
+    """A seeded blocky stack at WIDTH x HEIGHT (8x8 blocks of depth and
+    surface flags, random normals and reservoirs, a tenth of the v2
+    vertices absent; tests/test_probe_kernels.py's fields at full size),
+    with the default tuning's tables: (stack, dy, dx, seed, kwargs) per
+    mode."""
+    from strolle_tpu_torch.config import DEFAULT_TUNING as t
+    from strolle_tpu_torch.restir import di
+
+    h, w = HEIGHT, WIDTH
+    rs = np.random.RandomState(21)
+
+    def blocky(lo, hi):
+        return np.repeat(np.repeat(rs.uniform(lo, hi, (h // 8, w // 8)), 8, 0), 8, 1)
+
+    def unit(n):
+        v = rs.normal(size=(n, h, w))
+        return v / np.linalg.norm(v, axis=0, keepdims=True)
+
+    planes = np.concatenate([
+        blocky(1.0, 5.0)[None], unit(3), (blocky(0.0, 1.0) > 0.15)[None],
+        ((rs.uniform(0, 1, (h, w)) > 0.2) * rs.uniform(1, 8, (h, w)))[None],
+        rs.uniform(-2, 2, (3, h, w)),
+        rs.uniform(-2, 2, (3, h, w)) * (rs.uniform(0, 1, (1, h, w)) > 0.1),
+        unit(3), rs.uniform(-2, 2, (3, h, w)),
+    ]).astype(np.float32)
+    stack = torch.tensor(planes, device=device)
+    surf_like = types.SimpleNamespace(depth=stack[0], normal=stack[1:4].permute(1, 2, 0),
+                                      is_some=stack[4] > 0.5)
+    seed = 0xBEEF
+    cases = {}
+    for mode, planes_after, gi_kw in (("di", [stack[5]], {}),
+                                      ("gi", list(stack[5:]), dict(jac_reject=10.0, jac_clamp=3.0))):
+        radius = t.di_spatial_radius if mode == "di" else t.gi_spatial_radius
+        tries = t.di_spatial_samples if mode == "di" else t.gi_spatial_samples
+        st, dy, dx, kw = di.probe_inputs(surf_like, planes_after, seed, tries, radius, **gi_kw)
+        cases[mode] = (st, dy, dx, seed, kw)
+    return cases
+
+
+def compare_probe_kernel(cases: dict) -> dict:
+    """Kernel 7 against its plain version on each named case (mode ->
+    (stack, dy, dx, seed, kwargs)): oy, ox and found exact, jac bit-equal
+    (the same operations in the same order, with a correctly rounded
+    sqrt and division on both sides). Returns the max abs error per mode."""
+    from strolle_tpu_torch.ops.kernels import probe_kernels as pk
+
+    err = {"di": 0.0, "gi": 0.0}
+    for name, (stack, dy, dx, seed, kw) in cases.items():
+        got = pk.probe_spatial(stack, dy, dx, seed, **kw)
+        want = pk.probe_spatial_plain(stack, dy, dx, seed, **kw)
+        torch.cuda.synchronize()
+        mode = kw["mode"]
+        differing = {k: int((a != b).sum()) for k, a, b in zip(("oy", "ox", "found", "jac"),
+                                                              got, want)}
+        e = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        found = got[2].float().mean().item()
+        print(f"kernel 7 ({name}, {mode}, {tuple(stack.shape)}, {kw['tries']} tries) vs plain: "
+              f"pixels differing {differing}, max err {e:.3g}, found share {found:.3f}",
+              flush=True)
+        check(not any(differing.values()), f"kernel 7 ({name}): differs from its plain version")
+        check(0.0 < found < 1.0, f"kernel 7 ({name}): degenerate (found share {found})")
+        err[mode] = max(err[mode], e)
+    return err
+
+
+def probe_cost(case: tuple) -> dict:
+    """Kernel 7's least work on one case: the tries each pixel makes up to
+    the one it accepts (the plain version counts them; later tries change
+    nothing), and the bytes it must move (the stack and tables read once,
+    oy, ox, found and, in GI mode, jac written once)."""
+    from strolle_tpu_torch.ops.kernels import probe_kernels as pk
+
+    stack, dy, dx, seed, kw = case
+    work = torch.zeros(stack.shape[1:], dtype=torch.int32, device=stack.device)
+    pk.probe_spatial_plain(stack, dy, dx, seed, work=work, **kw)
+    tries = int(work.sum(dtype=torch.int64))
+    px = stack.shape[1] * stack.shape[2]
+    nbytes = 4 * (stack.numel() + dy.numel() + dx.numel()) + px * (
+        9 + (4 if kw["mode"] == "gi" else 0))
+    b, by = bound(tries * OPS_PROBE_TRY[kw["mode"]], nbytes)
+    return {"pixels": px, "tries_made": tries, "bytes": nbytes, "bound_ms": b, "bound_by": by}
+
+
+def probe_launches(frames: int) -> dict:
+    """Kernel 7's launches over ``frames`` realtime frames from frame 0
+    with the switch on: DI once a frame, GI on the odd tracing frames."""
+    return {"probe_spatial_di": frames,
+            "probe_spatial_gi": sum(f % 6 in (1, 3) for f in range(frames))}
+
+
+def drive_probe_route(scene, cam, seed0: int, cfg, luts, off_mean, ref1, tol: float,
+                      big=None) -> tuple:
+    """RT_FRAMES realtime frames with the switch on, counted from 0:
+    kernel 7 launches as ``probe_launches`` says and every other kernel as
+    with the switch off; the mean image within ``tol`` of ``ref1`` and
+    within 1% of the switch-off run on the same seeds (``off_mean``).
+    Returns (launches, final state, the two relative differences)."""
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    with probe_switch(True):
+        cuda_lib.reset_launch_counts()
+        mean, state = drive_realtime(scene, cam, seed0, cfg, luts)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+    want = {**realtime_launches(RT_FRAMES, big=big), **probe_launches(RT_FRAMES)}
+    for k in ALL_KERNELS:
+        check(launches.get(k, 0) == want.get(k, 0),
+              f"the probe route launched {k} {launches.get(k, 0)} times, not {want.get(k, 0)}")
+    rel_ref = abs(mean.mean().item() - ref1.mean().item()) / ref1.mean().item()
+    rel_off = abs(mean.mean().item() - off_mean.mean().item()) / off_mean.mean().item()
+    print(f"probe route ({RT_FRAMES} frames, launches {launches}): mean image "
+          f"{mean.mean().item():.5f}, vs the reference {rel_ref:.4f}, vs the switch-off run "
+          f"{rel_off:.5f}", flush=True)
+    check(rel_ref < tol, f"probe route: mean off the reference by {rel_ref:.3f}")
+    check(rel_off < 0.01, f"probe route: mean off the switch-off run by {rel_off:.4f}")
+    return launches, state, rel_ref, rel_off
+
+
+def di_routes_equal(scene, args) -> None:
+    """One DI spatial pass on captured inputs through the fused probe and
+    through the tensor probe: every field equal."""
+    from strolle_tpu_torch.restir import di
+
+    cam, surf, res, seed, frame, tuning = args
+    with probe_switch(True):
+        fused = di.di_spatial(scene, cam, surf, res, seed, frame, tuning)
+        tensor = di.di_spatial(scene, cam, surf, res, seed, frame, tuning, use_pallas=False)
+    for f in dataclasses.fields(fused):
+        check(torch.equal(getattr(fused, f.name), getattr(tensor, f.name)),
+              f"DI spatial: {f.name} differs between the fused and the tensor probe")
+    print("DI spatial on frame 0's inputs: the fused probe's output equals the tensor "
+          "probe's in every field", flush=True)
+
+
+def drive_switches(scene, cam, state, seed: int) -> dict:
+    """One frame (an odd tracing frame, GI's spatial pass runs) from
+    ``state`` under each RenderConfig switch with the probe switch on:
+    kernel 7's DI and GI launches follow needs_di and needs_gi, every
+    channel is finite, a channel that is off is zero. Returns the
+    launches per switch."""
+    from strolle_tpu_torch.models.restir import RenderConfig, render_frame_fused
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    check(state.frame % 6 in (1, 3), "the switches run on an odd tracing frame")
+    out = {}
+    for name, flags in (("default", {}), ("needs_gi=False", dict(needs_gi=False)),
+                        ("needs_di=False", dict(needs_di=False)),
+                        ("denoise=False", dict(denoise=False))):
+        cfg = RenderConfig(**flags)
+        with probe_switch(True):
+            cuda_lib.reset_launch_counts()
+            ch, _ = render_frame_fused(scene, cam, state, seed, cfg)
+            torch.cuda.synchronize()
+            launches = dict(cuda_lib.LAUNCHES)
+        want = {"probe_spatial_di": int(cfg.needs_di), "probe_spatial_gi": int(cfg.needs_gi)}
+        for k, n in want.items():
+            check(launches.get(k, 0) == n, f"{name}: {k} launched {launches.get(k, 0)} times")
+        for k, v in ch.items():
+            check(bool(torch.isfinite(v).all()), f"{name}: {k} not finite")
+        for off, chans in ((not cfg.needs_di, ("di_diffuse", "di_specular")),
+                           (not cfg.needs_gi, ("gi_diffuse", "gi_specular"))):
+            for k in chans if off else ():
+                check(not bool(ch[k].any()), f"{name}: {k} is not zero")
+        out[name] = {"launches": launches, "image_mean": ch["image"].mean().item()}
+        print(f"switch {name}: launches {launches}, image mean {ch['image'].mean().item():.5f}",
+              flush=True)
+    return out
+
+
+def check_heatmap(scene, cam) -> dict:
+    """The BVH heatmap of the dungeon: finite colours of the right shape,
+    equal to the gradient of trace_cost_bvh's byte costs."""
+    from strolle_tpu_torch.bvh.traverse import trace_cost_bvh
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+    from strolle_tpu_torch.models import heatmap
+
+    img = heatmap.render_heatmap(scene, cam)
+    o, d = pixel_rays(cam, screen_grid(cam))
+    cost = trace_cost_bvh(scene, o, d).to(torch.float32)
+    want = heatmap.heatmap_gradient(cost / heatmap.HEATMAP_SCALE)
+    torch.cuda.synchronize()
+    check(tuple(img.shape) == (cam.height, cam.width, 3), "heatmap shape")
+    check(bool(torch.isfinite(img).all()), "heatmap: non-finite colours")
+    check(torch.equal(img, want), "heatmap: colours differ from trace_cost_bvh's gradient")
+    check(float(cost.min()) > 0 and float(cost.max()) > float(cost.min()), "heatmap: flat cost")
+    out = {"cost_bytes_mean": cost.mean().item(), "cost_bytes_max": cost.max().item(),
+           "ms": time_ms(lambda: heatmap.render_heatmap(scene, cam), warmup=1, iters=3)}
+    print(f"dungeon heatmap: {out}", flush=True)
+    return out
+
+
+def time_probe_stages(scene, cam, state, seed0: int, cfg=None, luts=None) -> tuple:
+    """The DI and GI stages' ms per frame over one GI cycle each with the
+    probe switch off, on, on, off (in turns); returns (turns, state)."""
+    turns = []
+    for i, on in enumerate((False, True, True, False)):
+        with probe_switch(on):
+            stages, state = time_stages(scene, cam, state, seed0 + 6 * i, cfg, luts)
+        turns.append({"probe_kernel": on, "di_ms": stages["di"], "gi_ms": stages["gi"]})
+    return turns, state
 
 
 T_START = time.perf_counter()
@@ -1172,6 +1472,33 @@ def main() -> int:
     print(f"trace_closest under 'packet' (the torch BVH traversal) on {dpo.numel() // 3} "
           f"primary rays: {ms_traverse:.1f} ms, profile {profile_traverse}", flush=True)
 
+    # --- 5d. kernel 7, the spatial-probe route, the switches, the heatmap ---
+    phase("5d")
+    from strolle_tpu_torch.ops.kernels import probe_kernels as pk
+
+    cap = spatial_inputs(scene, cam, RenderConfig(), None)
+    dcap = spatial_inputs(dg, dcam, dcfg, dluts)
+    probe_cases = {"cornell": probe_case("di", cap["di"]),
+                   "cornell_gi": probe_case("gi", cap["gi"]),
+                   "dungeon": probe_case("di", dcap["di"]),
+                   "dungeon_gi": probe_case("gi", dcap["gi"])}
+    probe_cases.update({f"synthetic_{k}": v for k, v in synthetic_probe_cases(device).items()})
+    probe_err = compare_probe_kernel(probe_cases)
+    err.update({"7di": probe_err["di"], "7gi": probe_err["gi"]})
+    di_routes_equal(scene, cap["di"])
+    probe_route = {}
+    (probe_rt_launches, p_state, probe_route["cornell_vs_reference"],
+     probe_route["cornell_vs_switch_off"]) = drive_probe_route(scene, cam, 1000, None, None,
+                                                               rt_mean, ref1, 0.10)
+    (probe_route["dungeon_launches"], _, probe_route["dungeon_vs_reference"],
+     probe_route["dungeon_vs_switch_off"]) = drive_probe_route(
+        dg, dcam, 5000, dcfg, dluts, drt_mean, dref1, DG_RT_TOLERANCE,
+        big=STRATEGY_KERNELS["stream"])
+    with probe_switch(True):
+        _, p_state = render_frame_fused(scene, cam, p_state, 1000 + RT_FRAMES)
+    probe_route["switches"] = drive_switches(scene, cam, p_state, 1001 + RT_FRAMES)
+    heatmap_info = check_heatmap(dg, dcam)
+
     # --- 6. timings -----------------------------------------------------
     phase("6")
     rays = WIDTH * HEIGHT * (DEPTH + 1) * 2
@@ -1279,6 +1606,38 @@ def main() -> int:
         cost[key] = walk_cost(x)
     least_work_bounds(cost)
 
+    # kernel 7 on the Cornell frame's own spatial inputs (DI frame 0, GI
+    # frame 1), and the DI and GI stages with the switch off and on in turns
+    probe_t = {}
+    for mode, case in (("di", probe_cases["cornell"]), ("gi", probe_cases["cornell_gi"])):
+        stack, dy, dx, seed, kw = case
+        probe_t[mode] = {
+            "ms": time_ms(lambda: pk.probe_spatial(stack, dy, dx, seed, **kw)),
+            "plain_ms": time_ms(lambda: pk.probe_spatial_plain(stack, dy, dx, seed, **kw),
+                                warmup=1, iters=5),
+            **probe_cost(case),
+        }
+    probe_stages = {}
+    probe_stages["cornell"], rt_state = time_probe_stages(scene, cam, rt_state, 11000)
+    probe_stages["dungeon"], drt_state = time_probe_stages(dg, dcam, drt_state, 12000, dcfg,
+                                                           dluts)
+    # both realtime frames under the profiler with the switch on, beside
+    # the switch-off profiles above
+    probe_profiles = {}
+    for name, args in (("cornell", (scene, cam, rt_state, RenderConfig(), None)),
+                       ("dungeon", (dg, dcam, drt_state, dcfg, dluts))):
+        pholder = {"state": args[2], "seed": 13000}
+
+        def p_frame(args=args, pholder=pholder):
+            _, pholder["state"] = render_frame_fused(args[0], args[1], pholder["state"],
+                                                     pholder["seed"], args[3], args[4])
+            pholder["seed"] += 1
+
+        with probe_switch(True):
+            probe_profiles[name] = profile_frames(p_frame, frames=6)
+    print(f"kernel 7 alone: {probe_t}; DI/GI stage ms in turns (switch off, on, on, off): "
+          f"{probe_stages}", flush=True)
+
     timings = {
         "card": card,
         "realtime_ms_per_frame": rt_ms,
@@ -1318,6 +1677,11 @@ def main() -> int:
         "walk_kernels": walk,
         "traverse_packet_ms": ms_traverse,
         "traverse_packet_profile": profile_traverse,
+        "probe_kernel": probe_t,
+        "probe_stage_turns": probe_stages,
+        "probe_profiles_switch_on": probe_profiles,
+        "probe_route": probe_route,
+        "heatmap": heatmap_info,
         "total_s": time.perf_counter() - T_START,
     }
     print("timings: " + json.dumps(timings), flush=True)
@@ -1382,7 +1746,17 @@ def main() -> int:
             "walk_bound_ms": cost[key]["walk_bound_ms"],
             "library_ms": None,
         })
-    check(len(kernels) == 10, "the kernels line must list the ten ported kernels")
+    for mode in ("di", "gi"):
+        kernels.append({
+            "name": f"probe_spatial_{mode}", "route": "cuda",
+            "source": "strolle_tpu_torch/csrc/probe_kernels.cu",
+            "replaces": "strolle_tpu/ops/pallas/probe_kernels.py:250",
+            "launches": probe_rt_launches[f"probe_spatial_{mode}"],
+            "max_abs_err": err["7" + mode], "ms": probe_t[mode]["ms"],
+            "plain_ms": probe_t[mode]["plain_ms"], "bound_ms": probe_t[mode]["bound_ms"],
+            "bound_by": probe_t[mode]["bound_by"], "library_ms": None,
+        })
+    check(len(kernels) == 12, "the kernels line must list the twelve ported kernels")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: never launched on its main path")
         check(all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")),

@@ -13,6 +13,10 @@ stages:
     denoise   SVGF on the DI- and GI-diffuse channels
     compose
 
+``RenderConfig`` switches DI, GI and the denoiser off as the JAX
+package's does: a channel that is off is zero and its state passes
+through.
+
 The stage functions keep the JAX package's names and arguments (less
 the device mesh), so a test can feed both packages the same inputs stage
 by stage. The frame
@@ -28,7 +32,7 @@ import torch
 
 from ..camera import Camera, pixel_rays, screen_grid
 from ..config import DEFAULT_TUNING, Tuning
-from ..denoise.svgf import DenoiserState, denoise_pair
+from ..denoise.svgf import DenoiserState, denoise_channel, denoise_pair
 from ..device import resolve_device
 from ..ops import bluenoise, gather, rng
 from ..ops.hit import Surface
@@ -43,10 +47,12 @@ from ..sky.atmosphere import luts_for, sample_atmosphere, sample_sky, sun_direct
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static pipeline configuration: DI + GI + SVGF (the JAX package's
-    defaults; its ``mode``, ``denoise``, ``needs_di`` and ``needs_gi``
-    switches are not ported)."""
+    """Static pipeline configuration (the JAX package's, less ``mode``)."""
 
+    #: SVGF on the diffuse channels that run
+    denoise: bool = True
+    needs_di: bool = True
+    needs_gi: bool = True
     #: evaluate the atmosphere for miss pixels
     include_sky: bool = False
     #: take trace_closest + surface_at (use_pallas=False), the route
@@ -96,32 +102,49 @@ def derive_seed(seed: int, k: int) -> int:
 def render_frame(scene: Scene, camera: Camera, state: RenderState, seed: int,
                  config: RenderConfig = RenderConfig(), luts=None):
     """Renders one frame; returns (channels dict, new state). ``luts``
-    default to the sun-altitude-keyed cache (``luts_for``), which GI
-    samples for its miss rays even with the sky off."""
-    if luts is None:
+    default to the sun-altitude-keyed cache (``luts_for``) wherever the
+    sky or GI (which samples it for its miss rays) runs."""
+    if luts is None and (config.include_sky or config.needs_gi):
         luts = luts_for(scene.sun_altitude, camera.device)
     use_pallas = False if config.differentiable else None
     frame = int(state.frame)
     seed = int(seed)
+    tuning = config.tuning
     surf, reproj, sky, bn_first, bn_second = _stage_prelude(
         scene, camera, state.prev_camera, state.prev_surface, frame, luts, config.include_sky,
         use_pallas,
     )
-    di_rhs, gi_rep, rhs_surf = _stage_history(
-        camera, reproj, state.di_prev, state.gi_prev, state.prev_surface
-    )
-    di_diff, di_spec, di_prev = _stage_di(
-        scene, camera, surf, state.prev_surface, reproj, state.di_prev, seed, frame,
-        bn_first, sky, config.tuning, use_pallas, (di_rhs, rhs_surf),
-    )
-    gi_diff, gi_spec, gi_prev = _stage_gi(
-        scene, camera, surf, state.prev_surface, reproj, state.gi_prev, seed, frame,
-        bn_second, luts, use_pallas, config.tuning, (gi_rep, rhs_surf),
-    )
-    (di_rgb, di_den), (gi_rgb, gi_den) = _stage_denoise_pair(
-        di_diff, gi_diff, surf, reproj, state.di_diff_denoiser, state.gi_diff_denoiser, frame,
-        config.tuning,
-    )
+    zeros4 = torch.zeros((camera.height, camera.width, 4), device=camera.device)
+    di_diff = di_spec = gi_diff = gi_spec = zeros4
+    di_prev, gi_prev = state.di_prev, state.gi_prev
+    # DI temporal and GI reprojection gather their history at the same
+    # reprojected pixels: when both run, one gather serves both
+    di_pre = gi_pre = None
+    if config.needs_di and config.needs_gi:
+        di_rhs, gi_rep, rhs_surf = _stage_history(
+            camera, reproj, state.di_prev, state.gi_prev, state.prev_surface
+        )
+        di_pre, gi_pre = (di_rhs, rhs_surf), (gi_rep, rhs_surf)
+    if config.needs_di:
+        di_diff, di_spec, di_prev = _stage_di(
+            scene, camera, surf, state.prev_surface, reproj, state.di_prev, seed, frame,
+            bn_first, sky, tuning, use_pallas, di_pre,
+        )
+    if config.needs_gi:
+        gi_diff, gi_spec, gi_prev = _stage_gi(
+            scene, camera, surf, state.prev_surface, reproj, state.gi_prev, seed, frame,
+            bn_second, luts, use_pallas, tuning, gi_pre,
+        )
+    di_den, gi_den = state.di_diff_denoiser, state.gi_diff_denoiser
+    di_rgb, gi_rgb = di_diff[..., :3], gi_diff[..., :3]
+    if config.denoise and config.needs_di and config.needs_gi:
+        (di_rgb, di_den), (gi_rgb, gi_den) = _stage_denoise_pair(
+            di_diff, gi_diff, surf, reproj, di_den, gi_den, frame, tuning,
+        )
+    elif config.denoise and config.needs_di:
+        di_rgb, di_den = _stage_denoise(di_diff, surf, reproj, di_den, frame, "di", tuning)
+    elif config.denoise and config.needs_gi:
+        gi_rgb, gi_den = _stage_denoise(gi_diff, surf, reproj, gi_den, frame, "gi", tuning)
     channels = _stage_compose(surf, di_rgb, gi_rgb, di_spec, gi_spec)
     new_state = RenderState(
         frame=frame + 1, prev_camera=camera, prev_surface=surf, di_prev=di_prev,
@@ -165,12 +188,13 @@ def _stage_history(camera, reproj, di_prev, gi_prev, prev_surface):
 
 def _stage_di(scene, camera, surf, prev_surface, reproj, di_prev, seed, frame, bn_first, sky,
               tuning=DEFAULT_TUNING, use_pallas=None, prefetched=None):
-    """The four DI passes. ``use_pallas`` is the JAX signature's: the
-    port's DI traces only occlusion rays, always through kernel B."""
+    """The four DI passes. ``use_pallas`` reaches the spatial probe (False
+    keeps the tensor probe)."""
     a = di_mod.di_sampling(scene, camera, surf, derive_seed(seed, 0), bn_first, tuning)
     b = di_mod.di_temporal(scene, camera, surf, prev_surface, reproj, a, di_prev,
                            derive_seed(seed, 1), tuning, prefetched)
-    c = di_mod.di_spatial(scene, camera, surf, b, derive_seed(seed, 2), frame, tuning)
+    c = di_mod.di_spatial(scene, camera, surf, b, derive_seed(seed, 2), frame, tuning,
+                          use_pallas)
     return di_mod.di_resolving(scene, camera, surf, c, sky)
 
 
@@ -178,6 +202,11 @@ def _stage_gi(scene, camera, surf, prev_surface, reproj, gi_prev, seed, frame, b
               luts, use_pallas=None, tuning=DEFAULT_TUNING, prefetched=None):
     return gi_mod.gi_pipeline(scene, camera, surf, prev_surface, reproj, gi_prev, seed, frame,
                               bn_second, luts, use_pallas, tuning, prefetched)
+
+
+def _stage_denoise(samples, surf, reproj, den_state, frame, kind, tuning=DEFAULT_TUNING):
+    """SVGF on one channel, where the other does not run."""
+    return denoise_channel(samples, surf, reproj, den_state, frame, kind=kind, tuning=tuning)
 
 
 def _stage_denoise_pair(di_samples, gi_samples, surf, reproj, di_state, gi_state, frame,

@@ -50,6 +50,8 @@ LAUNCHES: dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
+_F = ctypes.c_float
 _SIGNATURES = {
     # rows, n_rows, o, d, n_rays, t, tri, u, v, stream
     "strolle_trace_closest_brute": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
@@ -78,6 +80,12 @@ _SIGNATURES = {
     "strolle_bvh_trace_surface": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # nodes, rows, o, d, t_max, n_rays, occluded, work, stream
     "strolle_bvh_trace_anyhit": [_P, _P, _P, _P, _P, _I, _P, _P, _P],
+    # stack, h, w, dy, dx, seed, gi, tries, n_var, n_lvls, depth_tol,
+    # normal_min, j_lo, j_hi, c_lo, c_hi, oy, ox, found, jac (NULL in DI
+    # mode), stream
+    "strolle_probe_spatial": [
+        _P, _I, _I, _P, _P, _U, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P,
+    ],
 }
 
 

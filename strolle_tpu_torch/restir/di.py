@@ -6,14 +6,19 @@
     spatial(B)             -> C   (checkerboarded half; other half = B)
     resolving(C)           -> di0' + demodulated diffuse/specular
 
-The neighbour probe of the spatial pass is the JAX package's default
-tensor route (shared offset tables, ops/offsets.py); its opt-in Pallas
-probe kernel is a later slice of the port.
+The neighbour probe of the spatial pass has the JAX package's two
+routes: by default the tensor probe (shared offset tables,
+ops/offsets.py), and with ``STROLLE_PROBE_KERNEL=1`` in the environment
+(read on the host at each call) the fused probe of
+``ops/kernels/probe_kernels.py`` (kernel 7 on the card), unless the
+caller passes ``use_pallas=False``, as the differentiable frame does.
+In DI mode the two routes give the same result.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -22,6 +27,7 @@ from ..config import DEFAULT_TUNING, Tuning
 from ..ops import checkerboard as cb
 from ..ops import gather, math as vm, offsets as shoff, rng
 from ..ops.hit import Surface
+from ..ops.kernels import probe_kernels
 from ..ops.lights import gather_light, radiance, shadow_ray_bnoise
 from ..ops.trace import trace_anyhit
 from ..scene.types import LIGHT_NONE, Scene
@@ -178,20 +184,13 @@ def try_seed(seed: int, nth: int) -> int:
     return (int(seed) ^ ((0x9E3779B9 * (nth + 1)) & rng.MASK32)) & rng.MASK32
 
 
-def di_spatial(scene: Scene, camera: Camera, surf: Surface, res: rsv.DiReservoirs,
-               seed: int, frame: int, tuning: Tuning = DEFAULT_TUNING) -> rsv.DiReservoirs:
-    """Checkerboarded spatial reuse: one similar neighbour in <= 8 tries
-    at shared offsets (radius 128 px halving to >= 5 on rejection, depth
-    within 33%, normal dot >= 0.33), both cross-visibility rays traced,
-    merged with visibility-weighted MIS. The other half passes through."""
+def _di_probe_tensor(camera: Camera, surf: Surface, res: rsv.DiReservoirs, seed: int,
+                     tuning: Tuning, state):
+    """The tensor probe of di_spatial: (rhs_x, rhs_y, found, state)."""
     h, w = surf.depth.shape
     shape = (h, w)
     dev = surf.depth.device
     xs, ys = screen_xy(camera)
-    state = rng.wnoise_new(seed, xs, ys)
-    active = checkerboard_active(camera, frame)
-    lhs = res
-
     radii = shoff.radius_levels(tuning.di_spatial_radius)
     n_lvls = len(radii)
     n_var = 2
@@ -222,6 +221,81 @@ def di_spatial(scene: Scene, camera: Camera, surf: Surface, res: rsv.DiReservoir
         rhs_x = torch.where(accept, cx, rhs_x)
         rhs_y = torch.where(accept, cy, rhs_y)
         done = done | accept
+
+    return rhs_x, rhs_y, done, state
+
+
+def _probe_kernel_enabled(use_pallas) -> bool:
+    """The fused probe runs when ``STROLLE_PROBE_KERNEL=1`` and the caller
+    does not ask for the tensor route (``use_pallas=False``)."""
+    return os.environ.get("STROLLE_PROBE_KERNEL", "0") == "1" and use_pallas is not False
+
+
+def _draw_probe_tables(seed: int, tries: int, radii, n_var: int, margin: int, device):
+    """The per-try shared offset tables, concatenated [tries * V]:
+    exactly the draws the tensor probe makes."""
+    dys, dxs = zip(*(shoff.draw_offset_table(try_seed(seed, nth), radii, n_var, margin=margin,
+                                             device=device) for nth in range(tries)))
+    return torch.cat(dys), torch.cat(dxs)
+
+
+def probe_inputs(surf: Surface, planes, seed: int, tries: int, radius: float, **gi_kw):
+    """Kernel 7's inputs for one spatial pass: (stack, dy_tab, dx_tab,
+    the keyword arguments of ``probe_spatial``). The stack is the
+    surface's gate planes (depth, normal, is_some) and ``planes`` (m, then
+    in GI mode, given ``jac_reject`` and ``jac_clamp``, the reservoir's and
+    the surface's points, ``gi.probe_planes``)."""
+    h, w = surf.depth.shape
+    radii = shoff.radius_levels(radius)
+    margin = shoff.probe_margin(radius, h, w)
+    dy_tab, dx_tab = _draw_probe_tables(seed, tries, radii, 2, margin, surf.depth.device)
+    stack = torch.stack([surf.depth, *surf.normal.unbind(-1), surf.is_some.to(torch.float32),
+                         *planes])
+    kw = dict(mode="gi" if gi_kw else "di", tries=tries, n_var=2, n_lvls=len(radii),
+              margin=margin, depth_tol=0.33, normal_min=0.33, **gi_kw)
+    return stack, dy_tab, dx_tab, kw
+
+
+def probe_fused(camera: Camera, surf: Surface, planes, seed: int, tries: int, radius: float,
+                state, **gi_kw):
+    """The fused probe route of the spatial passes (``probe_inputs``).
+    Returns (rhs_x, rhs_y, found, state advanced by one word per try, [the
+    clamped Jacobian]): the accepted neighbour's mirrored coordinates (0
+    where none), as the tensor probe gives them."""
+    stack, dy_tab, dx_tab, kw = probe_inputs(surf, planes, seed, tries, radius, **gi_kw)
+    out = probe_kernels.probe_spatial(stack, dy_tab, dx_tab, seed, **kw)
+    oy, ox, done = out[:3]
+    xs, ys = screen_xy(camera)
+    cx, cy = contain_xy(camera, xs + ox, ys + oy)
+    # the kernel took one word per try from each pixel's stream: advance
+    # the host-side stream alike, so that the merge draws the tensor
+    # route's numbers
+    for _ in range(tries):
+        state, _ = rng.next_u32(state)
+    return (torch.where(done, cx, 0), torch.where(done, cy, 0), done, state) + out[3:]
+
+
+def di_spatial(scene: Scene, camera: Camera, surf: Surface, res: rsv.DiReservoirs,
+               seed: int, frame: int, tuning: Tuning = DEFAULT_TUNING,
+               use_pallas: bool | None = None) -> rsv.DiReservoirs:
+    """Checkerboarded spatial reuse: one similar neighbour in <= 8 tries
+    at shared offsets (radius 128 px halving to >= 5 on rejection, depth
+    within 33%, normal dot >= 0.33), both cross-visibility rays traced,
+    merged with visibility-weighted MIS. The other half passes through.
+    The probe takes the fused route where ``_probe_kernel_enabled``."""
+    h, w = surf.depth.shape
+    shape = (h, w)
+    dev = surf.depth.device
+    xs, ys = screen_xy(camera)
+    state = rng.wnoise_new(seed, xs, ys)
+    active = checkerboard_active(camera, frame)
+    lhs = res
+
+    if _probe_kernel_enabled(use_pallas):
+        rhs_x, rhs_y, done, state = probe_fused(
+            camera, surf, (res.m,), seed, tuning.di_spatial_samples, tuning.di_spatial_radius, state)
+    else:
+        rhs_x, rhs_y, done, state = _di_probe_tensor(camera, surf, res, seed, tuning, state)
 
     found = done & active & surf.is_some
     rhs, rhs_surf = gather.gather_tree((res, surf), rhs_y, rhs_x)

@@ -31,7 +31,7 @@ from ..ops.trace import trace_anyhit, trace_surface
 from ..scene.types import Scene
 from ..sky.atmosphere import SUN_DISTANCE, sample_atmosphere, sample_sky, sun_direction
 from . import reservoir as rsv
-from .di import checkerboard_active, try_seed
+from .di import _probe_kernel_enabled, checkerboard_active, probe_fused, try_seed
 from .mis import mis_eval
 from .primary import Reprojection
 
@@ -432,19 +432,14 @@ def gi_temporal(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
     return select(surf.is_some, main, empty)
 
 
-def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, seed: int,
-               frame: int, tuning: Tuning = DEFAULT_TUNING) -> GiReservoirs:
-    """DI's spatial reuse plus the reconnection Jacobian (reject outside
-    [1/10, 10], clamp to [1/3, 3]) on both the MIS and the merge weight.
-    Checkerboarded; the tensor probe as in di_spatial."""
+def _gi_probe_tensor(camera: Camera, surf: Surface, res: GiReservoirs, seed: int,
+                     tuning: Tuning, state):
+    """The tensor probe of gi_spatial: (rhs_x, rhs_y, found, state,
+    the clamped Jacobian)."""
     shape = surf.depth.shape
     h, w = shape
     dev = surf.depth.device
     xs, ys = screen_xy(camera)
-    state = rng.wnoise_new(seed, xs, ys)
-    active = checkerboard_active(camera, frame)
-    lhs = res
-
     radii = shoff.radius_levels(tuning.gi_spatial_radius)
     n_lvls = len(radii)
     n_var = 2
@@ -485,6 +480,40 @@ def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, s
         rhs_y = torch.where(accept, cy, rhs_y)
         rhs_jac = torch.where(accept, torch.clamp(jac, c_lo, c_hi), rhs_jac)
         done = done | accept
+
+    return rhs_x, rhs_y, done, state, rhs_jac
+
+
+def probe_planes(surf: Surface, res: GiReservoirs):
+    """The fused probe's planes after the surface's gates in GI mode: m,
+    v1_point, v2_point, v2_normal, the surface point."""
+    return (res.m, *res.v1_point.unbind(-1), *res.v2_point.unbind(-1),
+            *res.v2_normal.unbind(-1), *surf.point.unbind(-1))
+
+
+def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, seed: int,
+               frame: int, tuning: Tuning = DEFAULT_TUNING,
+               use_pallas: bool | None = None) -> GiReservoirs:
+    """DI's spatial reuse plus the reconnection Jacobian (reject outside
+    [1/10, 10], clamp to [1/3, 3]) on both the MIS and the merge weight.
+    Checkerboarded; the probe takes di_spatial's routes (in GI mode the
+    fused probe's Jacobian may differ from the tensor probe's in its last
+    bits)."""
+    shape = surf.depth.shape
+    h, w = shape
+    dev = surf.depth.device
+    xs, ys = screen_xy(camera)
+    state = rng.wnoise_new(seed, xs, ys)
+    active = checkerboard_active(camera, frame)
+    lhs = res
+
+    if _probe_kernel_enabled(use_pallas):
+        rhs_x, rhs_y, done, state, rhs_jac = probe_fused(
+            camera, surf, probe_planes(surf, res), seed, tuning.gi_spatial_samples, tuning.gi_spatial_radius,
+            state, jac_reject=tuning.gi_jacobian_reject, jac_clamp=tuning.gi_jacobian_clamp)
+    else:
+        rhs_x, rhs_y, done, state, rhs_jac = _gi_probe_tensor(camera, surf, res, seed, tuning,
+                                                              state)
 
     found = done & active & surf.is_some & ~lhs.is_empty
     rhs, rhs_surf = gather.gather_tree((res, surf), rhs_y, rhs_x)
@@ -627,7 +656,8 @@ def gi_pipeline(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
     t = gi_temporal(scene, camera, surf, prev_surf, reproj, cand, rep, derive_seed(seed, 12),
                     frame, tuning, rhs_surf=rep_surf)
     if odd_tracing:
-        source = gi_spatial(scene, camera, surf, t, derive_seed(seed, 13), frame, tuning)
+        source = gi_spatial(scene, camera, surf, t, derive_seed(seed, 13), frame, tuning,
+                            use_pallas)
     else:
         source = t
     p1 = gi_preview(scene, camera, surf, source, source, derive_seed(seed, 14),

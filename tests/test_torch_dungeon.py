@@ -1,13 +1,14 @@
 """The textured dungeon (8,393 triangles, a 2048x2048 atlas, the sun at
 altitude 0.35) in the port against the JAX package on the CPU: loading,
 PNG decoding, atlas sampling, the textured surface, the realtime
-prelude with the sky, reference-mode samples with the sky (one at 32x24,
-one at 16x12 through both routes of the staged loop), and a
-free-running realtime frame. The JAX dungeon is built once per test
-process and handed over through convert.py; three JAX programs are
-compiled (the prelude and two reference samples)."""
+prelude with the sky, reference-mode samples with the sky at 32x24
+(the staged loop's default route, and both of its routes against the
+same JAX sample), and a free-running realtime frame. The JAX dungeon is
+built once per test process and handed over through convert.py; two JAX
+programs are compiled (the prelude and the reference sample)."""
 
 import dataclasses
+import functools
 import io
 import json
 import struct
@@ -54,7 +55,14 @@ MIN_AGREE = 0.99
 @pytest.fixture(scope="module")
 def dg():
     """(JAX dungeon, the port's copy of it, JAX camera, port camera, port
-    LUTs, the same LUTs for JAX): the sun at 0.35 as bench.py sets it."""
+    LUTs, the same LUTs for JAX): the sun at 0.35 as bench.py sets it.
+    Built once per test process (tests/test_torch_strategies.py takes
+    this fixture too)."""
+    return _dungeon()
+
+
+@functools.cache
+def _dungeon():
     jscene = jax_scene_with_bvh(jax_dungeon()).replace(
         sun_altitude=jnp.asarray(SUN, jnp.float32))
     scene = convert.scene_from_arrays(scene_arrays(jscene), device="cpu")
@@ -187,13 +195,25 @@ def test_prelude_with_sky_matches_jax(dg):
     assert sky.max() > 0.0 and np.isfinite(sky).all()
 
 
+@functools.cache
+def _jax_sky_sample() -> np.ndarray:
+    """The JAX package's reference-mode sample of the dungeon at W x H
+    (seed 5, depth 1, the sky, use_pallas None: its staged loop, which on
+    the CPU takes its BVH traversal), jitted: one compiled program per
+    test process serves both tests below."""
+    jscene, _, jcam, _, _, jluts = _dungeon()
+    return np.asarray(jax.jit(
+        lambda s, c, l: jax_trace_sample(s, c, jnp.uint32(5), depth=1, include_sky=True,
+                                         use_pallas=None, luts=l)
+    )(jscene, jcam, jluts))
+
+
 def test_trace_sample_with_sky_matches_jax(dg):
     """One reference-mode sample, depth 1, with the sky: the port's staged
     loop (kernels 5 and 6's plain versions) against the JAX package's
     (its torch-free BVH traversal on the CPU)."""
-    jscene, scene, jcam, cam, luts, jluts = dg
-    want = np.asarray(jax_trace_sample(jscene, jcam, jnp.uint32(5), depth=1, include_sky=True,
-                                       luts=jluts))
+    _, scene, _, cam, luts, _ = dg
+    want = _jax_sky_sample()
     got = trace_sample(scene, cam, 5, depth=1, include_sky=True, luts=luts).numpy()
     assert got.shape == (H, W, 3) and np.isfinite(got).all()
     # the same PCG stream over the same hits; shading rounds without
@@ -207,15 +227,13 @@ def test_trace_sample_with_sky_matches_jax(dg):
 def test_staged_loop_fused_route_matches_jax(dg, monkeypatch):
     """The staged loop with use_pallas=None, the JAX package's default:
     every surface takes the fused route (kernel 5 + surface_at under
-    "stream"), none trace_closest, and the sample (16x12, depth 1, the
+    "stream"), none trace_closest, and the sample (W x H, depth 1, the
     sky) is the JAX package's staged loop's (jitted; on the CPU it takes
     its BVH traversal) within the tolerances above; use_pallas=False
     takes trace_closest for both bounces and gives the same image."""
     from strolle_tpu_torch.ops import trace as trace_mod
 
-    jscene, scene, _, _, luts, jluts = dg
-    jcam = jax_dungeon_camera(16, 12)
-    cam = convert.camera_from_arrays(np_tree(jcam), device="cpu")
+    _, scene, _, cam, luts, _ = dg
     closest = []
     real = trace_mod.trace_closest
 
@@ -228,12 +246,9 @@ def test_staged_loop_fused_route_matches_jax(dg, monkeypatch):
     assert closest == []
     split = trace_sample(scene, cam, 5, depth=1, include_sky=True, luts=luts, use_pallas=False)
     assert len(closest) == 2
-    want = np.asarray(jax.jit(
-        lambda s, c, l: jax_trace_sample(s, c, jnp.uint32(5), depth=1, include_sky=True,
-                                         use_pallas=None, luts=l)
-    )(jscene, jcam, jluts))
+    want = _jax_sky_sample()
     for img in (got.numpy(), split.numpy()):
-        assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+        assert img.shape == (H, W, 3) and np.isfinite(img).all()
         diff = np.abs(img - want).max(axis=-1)
         assert (diff <= 1e-3).mean() >= MIN_AGREE, (diff > 1e-3).mean()
         assert abs(img.mean() - want.mean()) <= 0.01 * want.mean()

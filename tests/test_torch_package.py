@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     pkg = ROOT / "strolle_tpu_torch"
     for module in ("bvh/traverse.py", "ops/kernels/cluster_kernels.py",
-                   "ops/kernels/bvh_kernels.py", "ops/trace.py"):
+                   "ops/kernels/bvh_kernels.py", "ops/trace.py",
+                   "ops/kernels/probe_kernels.py", "models/heatmap.py"):
         assert pkg / module in files, module
     for path in files:
         for mod in _imported_modules(path):

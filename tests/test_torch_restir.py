@@ -3,8 +3,10 @@
 ``test_realtime_stages_match_jax`` runs the JAX package's stage programs
 (``_stage_prelude`` ... ``_stage_compose`` of models/restir.py) for
 frames 0-6 of Cornell at 32x24 and, at every stage, hands the same
-inputs (carried over as numpy) to the port's stage. It compiles the JAX
-frame once, with 2 spatial tries per pass in place of 8 and 4 à-trous
+inputs (carried over as numpy) to the port's stage, and the same
+denoiser inputs to the port's single-channel stage. It compiles the JAX
+frame once (its DI, GI and SVGF stages side by side, in threads), with
+2 spatial tries per pass in place of 8 and 4 à-trous
 passes in place of 5: the unrolled tries and passes are much of the JAX
 compile. Four passes reach stride 8, the first whose blue-noise jitter
 is not truncated to zero, so the per-field jitter is held against the
@@ -25,7 +27,9 @@ the image means over the 7 frames agree within 1%.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,6 +102,27 @@ def _assert_stage(name: str, got, want, only=None):
         assert agree.mean() >= MIN_AGREE, f"{k}: {agree.mean():.4f} of pixels agree"
 
 
+def _compile_stages(jscene, jcam, js, jpre, jh, jluts, jtuning, seed):
+    """Compiles the JAX DI, GI and SVGF-pair stage programs of frame 0 at
+    once, in three threads (XLA compiles without holding the GIL), so
+    that the stage loop finds them compiled: about a fifth less wall time
+    than one after another. The pair stage is compiled on zero samples of
+    the DI and GI stages' shape, which gives the same program."""
+    jsurf, jrep, jsky, jbn1, jbn2 = jpre
+    zeros = jnp.zeros((H, W, 4), jnp.float32)
+    calls = (
+        lambda: jr._stage_gi(jscene, jcam, jsurf, js.prev_surface, jrep, js.gi_prev, seed,
+                             js.frame, jbn2, jluts, None, jtuning, None, (jh[1], jh[2])),
+        lambda: jr._stage_denoise_pair(zeros, zeros, jsurf, jrep, js.di_diff_denoiser,
+                                       js.gi_diff_denoiser, js.frame, jtuning),
+        lambda: jr._stage_di(jscene, jcam, jsurf, js.prev_surface, jrep, js.di_prev, seed,
+                             js.frame, jbn1, jsky, jtuning, None, None, (jh[0], jh[2])),
+    )
+    with ThreadPoolExecutor(len(calls)) as pool:
+        for done in [pool.submit(lambda c=c: jax.block_until_ready(c())) for c in calls]:
+            done.result()
+
+
 def test_realtime_stages_match_jax():
     jscene = jax_cornell_box()
     jcam = jax_cornell_camera(W, H)
@@ -140,6 +165,8 @@ def test_realtime_stages_match_jax():
         jsurf, jrep, jsky, jbn1, jbn2 = jpre
         surf, rep = _port(Surface, jsurf), _port(Reprojection, jrep)
         jh = jr._stage_history(jcam, jrep, js.di_prev, js.gi_prev, js.prev_surface)
+        if f == 0:
+            _compile_stages(jscene, jcam, js, jpre, jh, jluts, jtuning, jnp.uint32(seed))
         h = tr._stage_history(cam, rep, state.di_prev, state.gi_prev, state.prev_surface)
         _assert_stage("history", h, jh)
 
@@ -164,6 +191,14 @@ def test_realtime_stages_match_jax():
         den = tr._stage_denoise_pair(_t(jdi[0]), _t(jgi[0]), surf, rep, state.di_diff_denoiser,
                                      state.gi_diff_denoiser, f, tuning)
         _assert_stage("denoise", den, jden)
+        # the single-channel stage (the other channel off) on the same
+        # inputs, against the JAX package's denoiser output for that
+        # channel: its pair stage runs the same denoise_channel on a
+        # shared history fetch
+        for i, (kind, samples, den_state) in enumerate(
+                (("di", jdi[0], state.di_diff_denoiser), ("gi", jgi[0], state.gi_diff_denoiser))):
+            single = tr._stage_denoise(_t(samples), surf, rep, den_state, f, kind, tuning)
+            _assert_stage(f"denoise_{kind}", single, jden[i])
 
         jch = jr._stage_compose(jsurf, jden[0][0], jden[1][0], jdi[1], jgi[1])
         ch = tr._stage_compose(surf, _t(jden[0][0]), _t(jden[1][0]), _t(jdi[1]), _t(jgi[1]))
