@@ -28,8 +28,14 @@ Run from the root of the repository:  python3 chip_smoke.py
    with the sun at altitude 0.35 and its sky LUTs: holds kernels 5 and 6
    (the big-scene stream kernels) against their plain versions on the
    primary rays, the bounce-0 shadow rays toward the lights, rays toward
-   the sun with t_max = inf and 65,536 seeded rays from inside the
-   level, with their counts of box and triangle tests; drives reference
+   the sun with t_max = inf, 65,536 seeded rays from inside the level
+   and the realtime frame's GI shadow rays (captured from frame 0), with
+   their counts of box and triangle tests, and again under list caps
+   below the dungeon's 33 clusters (the overflow path, held against its
+   plain version and against the front-to-back walk's results; cap 0 is
+   the index-order walk, whose tests per ray are printed beside the
+   front-to-back walk's, which must test fewer triangles per primary);
+   drives reference
    mode (trace_sample depth 4 with the sky, render_reference for 8
    frames) and 18 realtime frames (RenderConfig(include_sky=True)), each
    with the counts set to 0 before and read after: kernels 5 and 6
@@ -55,10 +61,15 @@ Run from the root of the repository:  python3 chip_smoke.py
    that DI spatial gives the tensor probe's output on frame 0's inputs;
    runs one frame under each RenderConfig switch (needs_gi=False,
    needs_di=False, denoise=False) with kernel 7's launches following
-   them; renders the dungeon's BVH heatmap.
+   them; renders the dungeon's BVH heatmap. Then kernels A and B above
+   1024 rows: held against their plain versions over the 8,393 rows of the
+   dungeon without its BVH, on the 65,536 random rays, and driven by one
+   reference sample of it at 200x152 (counted: A and B once a bounce),
+   whose image must agree with the BVH route's.
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
-   in ms/frame, per stage, and under the profiler. A walking kernel's
+   in ms/frame, per stage, and under the profiler; kernels A and B also
+   over the BVH-less dungeon's rows, kernel 6 also on the sun and GI sets. A walking kernel's
    bound (5, 6, 8-11) counts the fewest box and triangle tests that any
    of the walks counted here makes on the same rays; its own walk's
    count gives walk_bound_ms beside it. Kernel 7 alone in both modes on
@@ -103,6 +114,9 @@ REF_SAMPLES = 64
 DG_SUN = 0.35
 STREAM_RANDOM_RAYS = 65536
 DG_RT_TOLERANCE = 0.15
+#: One reference sample of the dungeon without its BVH (kernels A and B
+#: over all 8,393 rows) at this reduced size.
+FLAT_WIDTH, FLAT_HEIGHT = 200, 152
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 #: tensor cores, and HBM3 bandwidth.
@@ -242,14 +256,19 @@ def perturbed(scene, seed: int = 4):
     return scene.replace(geometry=geom, **compute_static_flags(geom, scene.materials))
 
 
-def anyhit_tests(rows, o, d, t_max) -> int:
+def anyhit_tests(rows, o, d, t_max, chunk: int = 256) -> int:
     """Ray-triangle tests kernel B makes: up to the first occluder."""
     from strolle_tpu_torch.ops.kernels.trace_kernels import _row_isect
 
-    t = _row_isect(rows, o.reshape(-1, 1, 3), d.reshape(-1, 1, 3))[0]
-    hits = t < t_max.reshape(-1, 1)
-    first = torch.where(hits.any(-1), hits.int().argmax(-1) + 1, hits.shape[1])
-    return int(first.sum())
+    o, d, t_max = o.reshape(-1, 1, 3), d.reshape(-1, 1, 3), t_max.reshape(-1, 1)
+    tested = torch.full(t_max.shape[:1], rows.shape[0], dtype=torch.int64, device=o.device)
+    found = torch.zeros_like(tested, dtype=torch.bool)
+    for c0 in range(0, rows.shape[0], chunk):
+        hits = _row_isect(rows[c0:c0 + chunk], o, d)[0] < t_max
+        first = hits.any(-1) & ~found
+        tested = torch.where(first, c0 + hits.int().argmax(-1) + 1, tested)
+        found |= first
+    return int(tested.sum())
 
 
 def bounce0_shadow_rays(scene, cam, seed):
@@ -269,11 +288,42 @@ def bounce0_shadow_rays(scene, cam, seed):
     return o, d, sr_o.contiguous(), sr_d.contiguous(), sr_len.contiguous()
 
 
-def compare_trace_kernels(scene, cam, device) -> dict:
-    """Kernels A and B against their plain versions; returns each one's
-    max abs error (A: t/u/v where tri agrees; B: the flags as 0/1)."""
-    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+def hold_brute(rows, o, d, t_max, name: str) -> tuple[float, float]:
+    """Kernels A and B against their plain versions on one ray set; returns
+    each one's max abs error (A: t/u/v where tri agrees; B: the flags as
+    0/1)."""
     from strolle_tpu_torch.ops.kernels import trace_kernels as tk
+
+    t, tri, u, v = tk.trace_closest_brute(rows, o, d)
+    pt, ptri, pu, pv = tk.trace_closest_brute_plain(rows, o, d)
+    torch.cuda.synchronize()
+    # Same operations in the same order with the same fused
+    # multiply-adds: tri must be equal and t, u, v bit-equal; allow
+    # 1e-5 of rays for the plain version's float64 emulation of fma
+    # (double rounding lands within 2^-29 of a float32 midpoint).
+    mism = (tri != ptri).float().mean().item()
+    check(mism <= 1e-5, f"kernel A ({name}): tri differs on {mism:.2e} of rays")
+    same = (tri == ptri) & (tri >= 0)
+    check(bool(torch.isinf(t[tri < 0]).all()), f"kernel A ({name}): miss with finite t")
+    e = max((t - pt)[same].abs().max().item(), (u - pu)[same].abs().max().item(),
+            (v - pv)[same].abs().max().item())
+    check(e <= 1e-5, f"kernel A ({name}): t/u/v differ by {e}")
+    occ = tk.trace_anyhit_brute(rows, o, d, t_max)
+    pocc = tk.trace_anyhit_brute_plain(rows, o, d, t_max)
+    mism = (occ != pocc).float().mean().item()
+    check(mism <= 1e-5, f"kernel B ({name}): occlusion differs on {mism:.2e} of rays")
+    check(0.0 < occ.float().mean().item() < 1.0, f"kernel B ({name}): degenerate")
+    print(f"kernel A/B vs plain ({name}, {o.numel() // 3} rays, {rows.shape[0]} rows): tri "
+          f"mismatch {(tri != ptri).sum().item()}, t/u/v max err {e:.3g}, occlusion mismatch "
+          f"{(occ != pocc).sum().item()}, hit rate {(tri >= 0).float().mean().item():.3f}, "
+          f"occluded rate {occ.float().mean().item():.3f}", flush=True)
+    return e, (occ != pocc).float().max().item()
+
+
+def compare_trace_kernels(scene, cam, device) -> dict:
+    """Kernels A and B against their plain versions on Cornell's primary
+    rays and on seeded random rays; returns each one's max abs error."""
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
     from strolle_tpu_torch.ops.trace import packed_tri_rows
 
     rows = packed_tri_rows(scene)
@@ -284,31 +334,8 @@ def compare_trace_kernels(scene, cam, device) -> dict:
         "primary": (po, pd, torch.full(po.shape[:-1], 2.5, device=device)),
         "random": (ro, rd, rt),
     }.items():
-        t, tri, u, v = tk.trace_closest_brute(rows, o, d)
-        pt, ptri, pu, pv = tk.trace_closest_brute_plain(rows, o, d)
-        torch.cuda.synchronize()
-        # Same operations in the same order with the same fused
-        # multiply-adds: tri must be equal and t, u, v bit-equal; allow
-        # 1e-5 of rays for the plain version's float64 emulation of fma
-        # (double rounding lands within 2^-29 of a float32 midpoint).
-        mism = (tri != ptri).float().mean().item()
-        check(mism <= 1e-5, f"kernel A ({name}): tri differs on {mism:.2e} of rays")
-        same = (tri == ptri) & (tri >= 0)
-        check(bool(torch.isinf(t[tri < 0]).all()), f"kernel A ({name}): miss with finite t")
-        e = max((t - pt)[same].abs().max().item(), (u - pu)[same].abs().max().item(),
-                (v - pv)[same].abs().max().item())
-        check(e <= 1e-5, f"kernel A ({name}): t/u/v differ by {e}")
-        err["A"] = max(err["A"], e)
-        occ = tk.trace_anyhit_brute(rows, o, d, t_max)
-        pocc = tk.trace_anyhit_brute_plain(rows, o, d, t_max)
-        mism = (occ != pocc).float().mean().item()
-        check(mism <= 1e-5, f"kernel B ({name}): occlusion differs on {mism:.2e} of rays")
-        check(0.0 < occ.float().mean().item() < 1.0, f"kernel B ({name}): degenerate")
-        err["B"] = max(err["B"], (occ != pocc).float().max().item())
-        print(f"kernel A/B vs plain ({name}, {o.numel() // 3} rays): tri mismatch "
-              f"{(tri != ptri).sum().item()}, t/u/v max err {e:.3g}, "
-              f"occlusion mismatch {(occ != pocc).sum().item()}, hit rate "
-              f"{(tri >= 0).float().mean().item():.3f}", flush=True)
+        ea, eb = hold_brute(rows, o, d, t_max, name)
+        err["A"], err["B"] = max(err["A"], ea), max(err["B"], eb)
     return err
 
 
@@ -421,7 +448,7 @@ def dungeon_scene(device):
     return scene, luts_for(DG_SUN, device)
 
 
-def stream_ray_sets(scene, cam, device) -> dict:
+def stream_ray_sets(scene, cam, device, luts) -> dict:
     """The ray sets kernels 5 and 6 are held on: name -> (o, d, t_max)
     (t_max None: a closest-hit set only)."""
     from strolle_tpu_torch.ops.trace import trace_surface
@@ -444,7 +471,39 @@ def stream_ray_sets(scene, cam, device) -> dict:
         "sun": (surf.point.contiguous(), sun.expand_as(surf.point).contiguous(),
                 torch.full(po.shape[:-1], math.inf, device=device)),
         "random": tuple(torch.tensor(x, device=device) for x in (ro, rd, rt)),
+        "gi": gi_shadow_rays(scene, cam, luts),
     }
+
+
+def gi_shadow_rays(scene, cam, luts):
+    """The realtime frame's GI shadow rays (restir/gi.py, from the
+    secondary vertex toward a light, or toward the sky with t_max = inf),
+    as trace_anyhit takes them on frame 0 (a GI sampling frame) of the
+    dungeon with the sky: (o, d, t_max)."""
+    from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame_fused
+    from strolle_tpu_torch.restir import gi
+
+    calls = []
+    trace = gi.trace_anyhit
+
+    def record(scene_, o, d, t_max):
+        calls.append((o, d, t_max))
+        return trace(scene_, o, d, t_max)
+
+    gi.trace_anyhit = record
+    try:
+        render_frame_fused(scene, cam, init_state(cam, device=cam.device), 0,
+                           RenderConfig(include_sky=True), luts)
+    finally:
+        gi.trace_anyhit = trace
+    check(len(calls) == 1, f"GI sampling cast {len(calls)} shadow-ray batches, not 1")
+    o, d, t_max = calls[0]
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
+                               o.shape[:-1])
+    sky = torch.isinf(t_max) & (d != 0).any(-1)
+    check(bool(sky.any()) and bool((torch.isfinite(t_max) & (t_max > 0)).any()),
+          "the GI shadow rays lack rays toward the sky or toward a light")
+    return o.contiguous(), d.contiguous(), t_max.contiguous()
 
 
 def stream_inputs(scene, o, d, t_max=None) -> dict:
@@ -461,9 +520,10 @@ def stream_inputs(scene, o, d, t_max=None) -> dict:
                 cap=cap)
 
 
-def stream_launch(x: dict, anyhit: bool, work=None):
+def stream_launch(x: dict, anyhit: bool, work=None, list_cap: int | None = None):
     """One launch of kernel 5 or 6 (the counting variant when ``work`` is
-    given) on prepared inputs; returns its outputs."""
+    given; the module's list cap unless ``list_cap``) on prepared inputs;
+    returns its outputs."""
     from strolle_tpu_torch.ops.kernels import cuda_lib
     from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 
@@ -476,27 +536,41 @@ def stream_launch(x: dict, anyhit: bool, work=None):
         outs = (torch.empty(batch, device=dev), torch.empty(batch, dtype=torch.int32, device=dev),
                 torch.empty(batch, device=dev), torch.empty(batch, device=dev))
         entry = "strolle_stream_trace_surface"
-    cuda_lib.launch_walk(entry, sk.launch_head(x["clus"], x["subs"], x["rows"]), x["o"], x["d"],
-                         x["cap"], outs, work)
+    cap = sk.LIST_CAP if list_cap is None else list_cap
+    cuda_lib.launch_walk(entry, sk.launch_head(x["clus"], x["subs"], x["rows"], cap), x["o"],
+                         x["d"], x["cap"], outs, work)
     return outs
 
 
-def stream_plain(x: dict, anyhit: bool, work=None):
+def stream_plain(x: dict, anyhit: bool, work=None, list_cap: int | None = None):
     from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 
     fn = sk.stream_trace_anyhit_plain if anyhit else sk.stream_trace_surface_plain
-    out = fn(x["clus"], x["subs"], x["rows"], x["o"], x["d"], x["cap"], work)
+    cap = sk.LIST_CAP if list_cap is None else list_cap
+    out = fn(x["clus"], x["subs"], x["rows"], x["o"], x["d"], x["cap"], work, list_cap=cap)
     return (out,) if anyhit else out
 
 
-def compare_stream_kernels(scene, cam, device) -> tuple[dict, dict]:
+def stream_mismatch(got, want, anyhit: bool, what: str) -> tuple[int, float]:
+    """Rays whose kernel 5 or 6 outputs differ from the plain version's,
+    and the max abs error of t/u/v where tri agrees (the flags as 0/1)."""
+    if anyhit:
+        return int((got[0] != want[0]).sum()), float((got[0] != want[0]).float().max())
+    same = got[1] == want[1]
+    e = max(float((a - b)[same].abs().max()) for a, b in zip(got, want)
+            if a.dtype == torch.float32)
+    check(e <= 1e-5, f"{what}: t/u/v differ by {e}")
+    return int((~same).sum()), e
+
+
+def compare_stream_kernels(scene, cam, device, luts) -> tuple[dict, dict]:
     """Kernels 5 and 6 against their plain versions on the dungeon's ray
     sets, launched through their wrappers, and their counting variants'
     box and triangle tests against the plain versions'. Returns (max abs
     error per kernel, the ray sets)."""
     from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 
-    sets = stream_ray_sets(scene, cam, device)
+    sets = stream_ray_sets(scene, cam, device, luts)
     err = {"5": 0.0, "6": 0.0}
     for name, (o, d, t_max) in sets.items():
         n = o.numel() // 3
@@ -509,29 +583,19 @@ def compare_stream_kernels(scene, cam, device) -> tuple[dict, dict]:
             else:
                 g = sk.stream_trace_surface(x["clus"], x["rows"], o, d)
                 got = (g["t"], torch.where(g["hit"], g["tri"], -1), g["u"], g["v"])
-            want = stream_plain(x, anyhit)
             work = torch.zeros((n, 2), dtype=torch.int32, device=device)
             pwork = torch.zeros_like(work)
             stream_launch(x, anyhit, work)
-            stream_plain(x, anyhit, pwork)
+            want = stream_plain(x, anyhit, pwork)
             torch.cuda.synchronize()
             k = "6" if anyhit else "5"
             what = f"kernel {k} ({name}, {n} rays)"
-            # The same walk, slab tests and fused multiply-adds: everything
-            # bit-equal; allow 1e-5 of rays for the plain version's float64
-            # emulation of fma (double rounding near a float32 midpoint).
-            if anyhit:
-                mism = int((got[0] != want[0]).sum())
-                e = float((got[0] != want[0]).float().max())
-                rate = got[0].float().mean().item()
-            else:
-                tri, ptri = got[1], want[1]
-                mism = int((tri != ptri).sum())
-                same = tri == ptri
-                e = max(float((a - b)[same].abs().max()) for a, b in zip(got, want)
-                        if a.dtype == torch.float32)
-                rate = (tri >= 0).float().mean().item()
-                check(e <= 1e-5, f"{what}: t/u/v differ by {e}")
+            # The same warps, lists, slab tests and fused multiply-adds:
+            # everything bit-equal; allow 1e-5 of rays for the plain
+            # version's float64 emulation of fma (double rounding near a
+            # float32 midpoint).
+            mism, e = stream_mismatch(got, want, anyhit, what)
+            rate = got[0].float().mean().item() if anyhit else (got[1] >= 0).float().mean().item()
             wmism = int((work != pwork).any(-1).sum())
             print(f"{what} vs plain: mismatches {mism}, max err {e:.3g}, work mismatches "
                   f"{wmism}, box tests {int(work[:, 0].sum())}, triangle tests "
@@ -545,6 +609,103 @@ def compare_stream_kernels(scene, cam, device) -> tuple[dict, dict]:
                   f"{what}: degenerate")
             err[k] = max(err[k], e)
     return err, sets
+
+
+#: List caps below the dungeon's 33 clusters: 0 sends every warp down the
+#: overflow path (the index-order walk), 4 some warps of each ray set.
+OVERFLOW_CAPS = (0, 4)
+
+
+def compare_stream_overflow(scene, sets: dict, device) -> dict:
+    """Kernels 5 (primaries, random rays) and 6 (shadow rays toward the
+    lights and the sun, the realtime GI shadow rays, random rays) under
+    list caps below the dungeon's cluster count, against their plain
+    versions under the same cap (in values and per-ray work) and against
+    the kernel's front-to-back walk
+    (the module's cap; the walk order must not change a result); then the
+    index-order walk's (cap 0) box and triangle tests per ray beside the
+    front-to-back walk's on the same rays. Kernel 5's triangle tests per
+    primary must be fewer front to back. Returns the per-ray counts by
+    kernel and ray set."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    walks = {}
+    for name, anyhit in (("primary", False), ("random", False), ("lights", True), ("sun", True),
+                         ("gi", True), ("random", True)):
+        o, d, t_max = sets[name]
+        x = stream_inputs(scene, o, d, t_max if anyhit else None)
+        n = o.numel() // 3
+        k = "6" if anyhit else "5"
+        per_ray = {}
+        ref = stream_launch(x, anyhit, list_cap=sk.LIST_CAP)
+        for cap in (sk.LIST_CAP,) + OVERFLOW_CAPS:
+            work = torch.zeros((n, 2), dtype=torch.int32, device=device)
+            got = stream_launch(x, anyhit, work, list_cap=cap)
+            per_ray[cap] = [float(v) / n for v in work.sum(0, dtype=torch.int64)]
+            if cap == sk.LIST_CAP:
+                continue
+            pwork = torch.zeros_like(work)
+            want = stream_plain(x, anyhit, pwork, list_cap=cap)
+            torch.cuda.synchronize()
+            what = f"kernel {k} ({name}, list cap {cap})"
+            mism, e = stream_mismatch(got, want, anyhit, what)
+            wmism = int((work != pwork).any(-1).sum())
+            rmism, re = stream_mismatch(got, ref, anyhit, f"{what} vs list cap {sk.LIST_CAP}")
+            _, _, count = sk.warp_lists(x["clus"], x["o"].reshape(-1, 3), x["d"].reshape(-1, 3),
+                                        x["cap"].reshape(-1))
+            share = (count > cap).float().mean().item()
+            print(f"{what} vs plain: mismatches {mism}, max err {e:.3g}, work mismatches "
+                  f"{wmism}, warps overflowing {share:.3f}; vs list cap {sk.LIST_CAP}: "
+                  f"mismatches {rmism}, max err {re:.3g}", flush=True)
+            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+            check(wmism <= 1e-5 * n, f"{what}: test counts differ on {wmism} rays")
+            check(rmism <= 1e-5 * n, f"{what}: {rmism} rays differ from list cap {sk.LIST_CAP}")
+        print(f"kernel {k} ({name}) per ray: front to back {per_ray[sk.LIST_CAP][0]:.2f} box and "
+              f"{per_ray[sk.LIST_CAP][1]:.2f} triangle tests; index order (list cap 0, its "
+              f"{x['clus'].shape[0]} list tests included) {per_ray[0][0]:.2f} and "
+              f"{per_ray[0][1]:.2f}; list cap 4 {per_ray[4][0]:.2f} and {per_ray[4][1]:.2f}",
+              flush=True)
+        walks[f"{k} {name}"] = {"front_to_back": per_ray[sk.LIST_CAP],
+                                "index_order": per_ray[0], "list_cap_4": per_ray[4]}
+    primary = walks["5 primary"]
+    check(primary["front_to_back"][1] < primary["index_order"][1],
+          "kernel 5: the front-to-back walk tests no fewer triangles per primary")
+    return walks
+
+
+def drive_flat_dungeon(flat, scene, luts, device) -> dict:
+    """One reference sample (trace_sample, depth DEPTH, the sky) of the
+    dungeon without its BVH at FLAT_WIDTH x FLAT_HEIGHT, with the counts
+    set to 0 before and read after: kernels A and B launch once a bounce
+    each, no other kernel; the image finite and, on 99% of pixels, within
+    1e-3 of the same sample of the dungeon with its BVH ("stream": the same
+    hits, found by kernels 5 and 6). Returns the launches."""
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.scene.demo import dungeon_camera
+
+    cam = dungeon_camera(FLAT_WIDTH, FLAT_HEIGHT, device=device)
+    cuda_lib.reset_launch_counts()
+    img = trace_sample(flat, cam, SEED, depth=DEPTH, include_sky=True, luts=luts)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"dungeon without a BVH, {FLAT_WIDTH}x{FLAT_HEIGHT} reference sample launches: "
+          f"{launches}", flush=True)
+    want = {"trace_closest_brute": DEPTH + 1, "trace_anyhit_brute": DEPTH + 1}
+    for k in ALL_KERNELS:
+        check(launches.get(k, 0) == want.get(k, 0),
+              f"the BVH-less dungeon launched {k} {launches.get(k, 0)} times, not "
+              f"{want.get(k, 0)}")
+    check(tuple(img.shape) == (FLAT_HEIGHT, FLAT_WIDTH, 3), "BVH-less dungeon: image shape")
+    check(bool(torch.isfinite(img).all()), "BVH-less dungeon: non-finite values")
+    check(1e-3 < img.mean().item() < 5.0, "BVH-less dungeon: implausible mean")
+    with strategy("stream"):
+        ref = trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=True, luts=luts)
+    close = ((img - ref).abs().amax(-1) <= 1e-3).float().mean().item()
+    print(f"dungeon without a BVH vs with it: {close:.5f} of pixels within 1e-3, means "
+          f"{img.mean().item():.5f} vs {ref.mean().item():.5f}", flush=True)
+    check(close > 0.99, "the BVH-less dungeon disagrees with the stream route")
+    return launches
 
 
 def stream_cost(x: dict, anyhit: bool) -> dict:
@@ -1405,8 +1566,9 @@ def main() -> int:
     print(f"dungeon: {dg.geometry.num_triangles} triangles, {dg.clusters.shape[0]} clusters, "
           f"atlas {tuple(dg.atlas.image.shape)}, tex_channels {dg.materials.tex_channels}, "
           f"loaded with its BVH in {dg_load_s:.1f} s", flush=True)
-    serr, ssets = compare_stream_kernels(dg, dcam, device)
+    serr, ssets = compare_stream_kernels(dg, dcam, device, dluts)
     err.update(serr)
+    stream_walks = compare_stream_overflow(dg, ssets, device)
 
     cuda_lib.reset_launch_counts()
     dimg = trace_sample(dg, dcam, SEED, depth=DEPTH, include_sky=True, luts=dluts)
@@ -1499,6 +1661,15 @@ def main() -> int:
     probe_route["switches"] = drive_switches(scene, cam, p_state, 1001 + RT_FRAMES)
     heatmap_info = check_heatmap(dg, dcam)
 
+    # --- 5e. kernels A and B above 1024 rows: the dungeon without its BVH --
+    phase("5e")
+    flat = dg.replace(bvh=None, clusters=None)
+    flat_rows = packed_tri_rows(flat)
+    fo, fd, ft = ssets["random"]
+    ea, eb = hold_brute(flat_rows, fo, fd, ft, "dungeon without a BVH, random")
+    err["A"], err["B"] = max(err["A"], ea), max(err["B"], eb)
+    flat_launches = drive_flat_dungeon(flat, dg, dluts, device)
+
     # --- 6. timings -----------------------------------------------------
     phase("6")
     rays = WIDTH * HEIGHT * (DEPTH + 1) * 2
@@ -1542,6 +1713,25 @@ def main() -> int:
                       warmup=1, iters=5)
     bound_b, by_b = bound(anyhit_tests(rows, so, sd, slen) * FLOPS_MT,
                           4 * rows.numel() + r * 28 + r)
+
+    # kernels A and B over the BVH-less dungeon's rows on its random rays
+    fn = fo.numel() // 3
+    ms_a_flat = time_ms(lambda: tk.trace_closest_brute(flat_rows, fo, fd))
+    plain_a_flat = time_ms(lambda: tk.trace_closest_brute_plain(flat_rows, fo, fd), warmup=1,
+                           iters=3)
+    bound_a_flat = bound(fn * flat_rows.shape[0] * FLOPS_MT,
+                         4 * flat_rows.numel() + fn * 24 + fn * 16)
+    ms_b_flat = time_ms(lambda: tk.trace_anyhit_brute(flat_rows, fo, fd, ft))
+    plain_b_flat = time_ms(lambda: tk.trace_anyhit_brute_plain(flat_rows, fo, fd, ft),
+                           warmup=1, iters=3)
+    bound_b_flat = bound(anyhit_tests(flat_rows, fo, fd, ft) * FLOPS_MT,
+                         4 * flat_rows.numel() + fn * 28 + fn)
+    brute_flat = {"rays": fn, "rows": flat_rows.shape[0],
+                  "A": {"ms": ms_a_flat, "plain_ms": plain_a_flat, "bound_ms": bound_a_flat[0],
+                        "bound_by": bound_a_flat[1]},
+                  "B": {"ms": ms_b_flat, "plain_ms": plain_b_flat, "bound_ms": bound_b_flat[0],
+                        "bound_by": bound_b_flat[1]}}
+    print(f"kernels A and B over {flat_rows.shape[0]} rows: {brute_flat}", flush=True)
 
     # kernel 4 alone on the realtime frame's primary rays
     grows = packed_geom_rows(scene)
@@ -1593,6 +1783,14 @@ def main() -> int:
     ms_6 = time_ms(lambda: stream_launch(x6, True))
     plain_6 = time_ms(lambda: stream_plain(x6, True), warmup=1, iters=3)
     cost = {"5": stream_cost(x5, False), "6": stream_cost(x6, True)}
+    # kernel 6 also on the long rays: toward the sun, and the realtime GI
+    # shadow rays (a quarter toward the sky)
+    ms_6_long = {}
+    for name in ("sun", "gi"):
+        x = stream_inputs(dg, *ssets[name])
+        ms_6_long[name] = time_ms(lambda: stream_launch(x, True))
+    print(f"kernel 6 ms: lights {ms_6:.4f}, sun {ms_6_long['sun']:.4f}, realtime GI shadow "
+          f"rays {ms_6_long['gi']:.4f} ({ssets['gi'][0].numel() // 3} rays)", flush=True)
 
     # kernels 8 and 10 on the primary rays, 9 and 11 on the reference
     # loop's bounce-0 shadow rays toward the lights (kernels 5 and 6's sets)
@@ -1671,6 +1869,10 @@ def main() -> int:
         "dungeon_realtime_mean_vs_reference": drel,
         "dungeon_profile_ref": turns[0]["profile_ref"],
         "walk_costs": cost,
+        "stream_walks_per_ray": stream_walks,
+        "stream_anyhit_long_rays_ms": ms_6_long,
+        "brute_over_1024_rows": brute_flat,
+        "flat_dungeon_launches": flat_launches,
         "strategies": {name: {k: v for k, v in r.items() if not k.endswith("launches")}
                        for name, r in strat.items()},
         "strategy_turns": turns,
@@ -1699,7 +1901,7 @@ def main() -> int:
             "name": "trace_closest_brute", "route": "cuda",
             "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
             "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:280",
-            "launches": launches["trace_closest_brute"],
+            "launches": launches["trace_closest_brute"] + flat_launches["trace_closest_brute"],
             "max_abs_err": err["A"], "ms": ms_a, "plain_ms": plain_a,
             "bound_ms": bound_a, "bound_by": by_a, "library_ms": None,
         },
@@ -1707,7 +1909,8 @@ def main() -> int:
             "name": "trace_anyhit_brute", "route": "cuda",
             "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
             "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:378",
-            "launches": launches["trace_anyhit_brute"] + rt_launches["trace_anyhit_brute"],
+            "launches": (launches["trace_anyhit_brute"] + rt_launches["trace_anyhit_brute"]
+                         + flat_launches["trace_anyhit_brute"]),
             "max_abs_err": err["B"], "ms": ms_b, "plain_ms": plain_b,
             "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
         },

@@ -17,10 +17,15 @@
 // so at Cornell size (40 rows) the work is ~50x the bytes at the card's
 // fp32 balance. The TPU kernel tiled rays into (128, 128) planes to keep
 // its vector unit dense and broadcast one row per step; here it is one
-// thread per ray (the ragged tail masked), and the block copies all rows
-// into shared memory once, so every row read in the loop is a broadcast
-// from shared memory that all 32 lanes of a warp take in one go. B leaves
-// its loop at the first occluder, which does not change its answer.
+// thread per ray (the ragged tail masked), and the block copies rows into
+// shared memory, so every row read in the loop is a broadcast from shared
+// memory that all 32 lanes of a warp take in one go. A and B take any row
+// count, as the JAX kernels do: they stage the rows in tiles of kTileRows
+// (48 KB), every thread of the block running every tile's load and both
+// barriers. B leaves its loop at the first occluder, which does not change
+// its answer, and the block stops loading tiles once all its rays are
+// done. Kernel 4 copies all its rows at once: it takes at most 1024, as
+// the JAX package routes it.
 //
 // Floating point: built with --fmad=false and no fast math (see
 // ops/kernels/cuda_lib.py), with explicit fmaf exactly where the plain
@@ -46,6 +51,8 @@ using strolle::resolve_surface;
 constexpr int kRowWidth = 12;
 constexpr int kGeomWidth = 28;
 constexpr int kThreads = 256;
+// Rows of A's and B's shared-memory tile: 48 KB of [*, 12] rows.
+constexpr int kTileRows = 1024;
 
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
                                           int n) {
@@ -60,22 +67,31 @@ __global__ void __launch_bounds__(kThreads)
                          int* __restrict__ tri_out, float* __restrict__ u_out,
                          float* __restrict__ v_out) {
   extern __shared__ float s_rows[];
-  load_rows(s_rows, rows, n_rows * kRowWidth);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const bool valid = i < n_rays;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (valid) {
+    ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  }
   float bt = INFINITY, bu = 0.0f, bv = 0.0f;
   int btri = -1;
-  for (int k = 0; k < n_rows; ++k) {
-    const MtHit h = moller_trumbore(s_rows + k * kRowWidth, ox, oy, oz, dx, dy, dz);
-    if (h.t < bt) {
-      bt = h.t;
-      btri = k;
-      bu = h.u;
-      bv = h.v;
+  for (int first = 0; first < n_rows; first += kTileRows) {
+    const int count = min(kTileRows, n_rows - first);
+    __syncthreads();  // the previous tile's tests are done
+    load_rows(s_rows, rows + static_cast<size_t>(first) * kRowWidth, count * kRowWidth);
+    if (!valid) continue;
+    for (int k = 0; k < count; ++k) {
+      const MtHit h = moller_trumbore(s_rows + k * kRowWidth, ox, oy, oz, dx, dy, dz);
+      if (h.t < bt) {
+        bt = h.t;
+        btri = first + k;
+        bu = h.u;
+        bv = h.v;
+      }
     }
   }
+  if (!valid) return;
   t_out[i] = bt;
   tri_out[i] = btri;
   u_out[i] = bu;
@@ -88,20 +104,30 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ t_max, int n_rays,
                         bool* __restrict__ occluded) {
   extern __shared__ float s_rows[];
-  load_rows(s_rows, rows, n_rows * kRowWidth);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  const float tm = t_max[i];
+  const bool valid = i < n_rays;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, tm = 0.0f;
+  if (valid) {
+    ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+    dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+    tm = t_max[i];
+  }
   bool occ = false;
-  for (int k = 0; k < n_rows; ++k) {
-    if (moller_trumbore(s_rows + k * kRowWidth, ox, oy, oz, dx, dy, dz).t < tm) {
-      occ = true;
-      break;
+  for (int first = 0; first < n_rows; first += kTileRows) {
+    // a barrier (the previous tile's tests are done) that also tells
+    // whether any ray of the block still looks for an occluder
+    if (!__syncthreads_or(valid && !occ)) break;
+    const int count = min(kTileRows, n_rows - first);
+    load_rows(s_rows, rows + static_cast<size_t>(first) * kRowWidth, count * kRowWidth);
+    if (!valid || occ) continue;
+    for (int k = 0; k < count; ++k) {
+      if (moller_trumbore(s_rows + k * kRowWidth, ox, oy, oz, dx, dy, dz).t < tm) {
+        occ = true;
+        break;
+      }
     }
   }
-  occluded[i] = occ;
+  if (valid) occluded[i] = occ;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -144,12 +170,17 @@ __global__ void __launch_bounds__(kThreads)
   mat_out[i] = mat;
 }
 
+// Shared memory of A's and B's row tile.
+size_t tile_bytes(int n_rows) {
+  return sizeof(float) * kRowWidth * static_cast<size_t>(n_rows < kTileRows ? n_rows : kTileRows);
+}
+
 }  // namespace
 
 extern "C" int strolle_trace_closest_brute(const float* rows, int n_rows, const float* o,
                                            const float* d, int n_rays, float* t, int* tri,
                                            float* u, float* v, void* stream) {
-  const size_t smem = sizeof(float) * kRowWidth * static_cast<size_t>(n_rows);
+  const size_t smem = tile_bytes(n_rows);
   cudaError_t err = allow_smem(closest_brute_kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;
@@ -161,7 +192,7 @@ extern "C" int strolle_trace_closest_brute(const float* rows, int n_rows, const 
 extern "C" int strolle_trace_anyhit_brute(const float* rows, int n_rows, const float* o,
                                           const float* d, const float* t_max, int n_rays,
                                           bool* occluded, void* stream) {
-  const size_t smem = sizeof(float) * kRowWidth * static_cast<size_t>(n_rows);
+  const size_t smem = tile_bytes(n_rows);
   cudaError_t err = allow_smem(anyhit_brute_kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (n_rays + kThreads - 1) / kThreads;

@@ -4,24 +4,34 @@ and ``stream_trace_anyhit_pallas``; the cluster rows come from
 cluster_kernels.py, as the JAX package's do).
 
 Geometry in BVH order is cut into clusters of CLUSTER_TRIS consecutive
-triangles, each cut again into SUB sub-blocks of SUB_TRIS. A ray walks
-the clusters in index order: it slab-tests each cluster's box against
-its current best t, then each sub-block box of an entered cluster, and
-runs Möller-Trumbore over the rows of each entered sub-block. Closest
-hit (kernel 5) starts its best t at the ray's exit from the scene box
-(``scene_tcap``) and keeps a hit on strict ``<``, so ties go to the
-lowest row; any-hit (kernel 6) tests against ``min(t_max, scene_tcap)``
-and stops at its first hit. Rays that miss the scene box, zero-length
-rays and rays with nothing left to test leave at once.
+triangles, each cut again into SUB sub-blocks of SUB_TRIS. Closest hit
+(kernel 5) starts its best t at the ray's exit from the scene box
+(``scene_tcap``); any-hit (kernel 6) tests against ``min(t_max,
+scene_tcap)`` and stops at its first hit. Rays that miss the scene box,
+zero-length rays and rays with nothing left to test leave at once.
 
-The TPU kernels reach the same answer through per-tile cull lists,
-double-buffered row DMA and (32, 128) ray tiles; those are its tiling
-and have no counterpart here. The CUDA kernels (``csrc/stream_kernels.cu``)
-run one thread per ray; each wrapper below runs its plain PyTorch
+The walk goes by warps of TILE_RAYS consecutive rays of the flat order,
+front to back, as the CUDA kernels (``csrc/stream_kernels.cu``) walk:
+each warp's list holds the clusters that any of its live rays enters
+before its starting bound, keyed by the least entry distance among them
+and sorted by (key, cluster) (``warp_lists``); a warp that enters more
+than LIST_CAP clusters walks all of them in index order instead. Before
+each list entry the warp stops once the key is past the largest best t
+of its rays still walking. Each walking ray re-tests the cluster's box
+against its own best t, then its sub-block boxes in turn, and runs
+Möller-Trumbore over the rows of each sub-block it enters. Closest hit
+keeps a hit on (t, row) < (best t, best row), so among exact ties the
+lowest row wins in any walk order, and a hit at exactly the cap stays a
+miss. The TPU kernels build their lists per (32, 128) ray tile outside
+the kernel; the walk is the same in kind. The CUDA kernels test a
+sub-block that few rays of a warp entered across the warp's lanes, with
+the same results and counts. Each wrapper below runs its plain PyTorch
 version for CPU tensors and launches the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -34,6 +44,11 @@ from .cluster_kernels import clusterize_bvh, num_clusters  # noqa: F401
 #: Sub-blocks per cluster, and triangles per sub-block.
 SUB = 8
 SUB_TRIS = CLUSTER_TRIS // SUB
+#: Rays walked together: a warp of the CUDA kernels.
+TILE_RAYS = 32
+#: Most clusters in a warp's list; a warp that enters more walks all K
+#: in index order (the JAX package's overflow tiles, ``_list_cap``).
+LIST_CAP = 256
 #: The scene-box cap's scale and offset, as the float32 values the JAX
 #: package multiplies and adds.
 _CAP_SCALE = float(np.float32(1.0001))
@@ -76,38 +91,93 @@ def scene_tcap(clus_rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> tor
     return torch.where(miss, 0.0, (tf.double() * _CAP_SCALE + _CAP_OFFSET).float())
 
 
-def _walk(clus_rows, sub_rows, geom_rows, o, d, best, work, on_subblock):
-    """The index-order walk shared by both plain versions. ``best`` [R]
-    is the slab tests' bound, updated in place by ``on_subblock(ids,
-    first_row, rows)``, which returns the rays that leave the walk.
-    ``work`` [R, 2] (optional) counts box tests and triangle tests."""
-    inv = safe_inv_dir(d)
-    live = ((best > 0.0) & (d != 0.0).any(dim=-1)).nonzero()[:, 0]
+def _by_warp(x: torch.Tensor, fill) -> torch.Tensor:
+    """[R, ...] per ray -> [W, TILE_RAYS, ...], the last warp padded."""
+    pad = (-x.shape[0]) % TILE_RAYS
+    if pad:
+        x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+    return x.reshape(-1, TILE_RAYS, *x.shape[1:])
+
+
+def live_rays(d, bound) -> torch.Tensor:
+    """The rays that walk: a positive bound and a non-zero direction."""
+    return (bound > 0.0) & (d != 0.0).any(dim=-1)
+
+
+def warp_lists(clus_rows, o, d, bound):
+    """Each warp's front-to-back cluster list. A cluster is on it when a
+    live ray of the warp enters its box before the ray's ``bound``; its key
+    is the least entry distance of those rays. Returns (ids [W, K]: the
+    clusters sorted by (key, id), the entered ones first; keys [W, K] in
+    that order, +inf past the entered ones; count [W] of entered)."""
+    inside, tn = slab(clus_rows[:, 0:3], clus_rows[:, 3:6], o[:, None], safe_inv_dir(d)[:, None],
+                      bound[:, None])
+    inside &= live_rays(d, bound)[:, None]
+    key = _by_warp(torch.where(inside, tn, math.inf), math.inf).amin(dim=1)
+    keys, ids = torch.sort(key, dim=1, stable=True)
+    return ids, keys, _by_warp(inside, False).any(dim=1).sum(dim=1)
+
+
+def _subblock_hits(geom_rows, o, d, first):
+    """Möller-Trumbore of each ray against the SUB_TRIS rows from its
+    ``first`` row: (t [n, SUB_TRIS], +inf past the last row; u; v; the
+    count of rows each ray tests)."""
     n_rows = geom_rows.shape[0]
-    for k in range(clus_rows.shape[0]):
-        if live.numel() == 0:
+    j = first[:, None] + torch.arange(SUB_TRIS, device=first.device)
+    valid = j < n_rows
+    r = geom_rows[j.clamp(max=n_rows - 1)]
+    t, u, v, _ = ray_triangle_edges(o[:, None], d[:, None], r[..., 0:3], r[..., 3:6],
+                                    r[..., 6:9])
+    return torch.where(valid, t, math.inf), u, v, valid.sum(dim=-1, dtype=torch.int32)
+
+
+def _walk(clus_rows, sub_rows, geom_rows, o, d, best, walking, work, on_subblock, list_cap):
+    """The warp walk shared by both plain versions. ``best`` [R] is the
+    slab tests' bound, updated in place by ``on_subblock(ids, first)``
+    (the rays that entered a sub-block, and its first row per ray), which
+    also clears ``walking`` [R] (the live rays) for rays that leave the
+    walk. ``work`` [R, 2] (optional) counts box tests and triangle tests."""
+    inv = safe_inv_dir(d)
+    n_clusters = clus_rows.shape[0]
+    n_rows = geom_rows.shape[0]
+    ids, keys, count = warp_lists(clus_rows, o, d, best)
+    if work is not None:
+        work[walking, 0] += n_clusters
+    overflow = count > list_cap
+    steps = torch.where(overflow, n_clusters, count)
+    warp = torch.arange(o.shape[0], device=o.device) // TILE_RAYS
+    on = steps > 0
+    for step in range(int(steps.max()) if steps.numel() else 0):
+        # the stop: a sorted list's key past the warp's largest best t
+        mx = _by_warp(torch.where(walking, best, -math.inf), -math.inf).amax(dim=1)
+        on &= (step < steps) & (mx > -math.inf) & (overflow | (keys[:, step] <= mx))
+        if not bool(on.any()):
             break
+        k_warp = torch.where(overflow, step, ids[:, step])
+        rays = (walking & on[warp]).nonzero()[:, 0]
         if work is not None:
-            work[live, 0] += 1
+            work[rays, 0] += 1
+        k = k_warp[warp[rays]]
         box = clus_rows[k]
-        ids = live[slab(box[0:3], box[3:6], o[live], inv[live], best[live])[0]]
+        inside = slab(box[:, 0:3], box[:, 3:6], o[rays], inv[rays], best[rays])[0]
+        rays, k = rays[inside], k[inside]
         for s in range(SUB):
-            if ids.numel() == 0:
+            keep = walking[rays]
+            rays, k = rays[keep], k[keep]
+            if rays.numel() == 0:
                 break
             if work is not None:
-                work[ids, 0] += 1
+                work[rays, 0] += 1
             sub = sub_rows[k * SUB + s]
-            ids2 = ids[slab(sub[0:3], sub[3:6], o[ids], inv[ids], best[ids])[0]]
-            first = k * CLUSTER_TRIS + s * SUB_TRIS
-            if ids2.numel() == 0 or first >= n_rows:
-                continue
-            done = on_subblock(ids2, first, geom_rows[first : first + SUB_TRIS])
-            if done is not None and done.numel():
-                ids = ids[~torch.isin(ids, done)]
-                live = live[~torch.isin(live, done)]
+            inside = slab(sub[:, 0:3], sub[:, 3:6], o[rays], inv[rays], best[rays])[0]
+            first = k[inside] * CLUSTER_TRIS + s * SUB_TRIS
+            some = first < n_rows
+            if bool(some.any()):
+                on_subblock(rays[inside][some], first[some])
 
 
-def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=None):
+def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=None,
+                               list_cap=LIST_CAP):
     """Plain version of kernel 5: (t, tri, u, v) over o's batch shape.
     t starts at ``tcap`` and stays there on a miss; tri = -1 on a miss.
     ``work`` [R, 2] int32 (optional) accumulates each ray's box tests and
@@ -120,27 +190,28 @@ def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=
     bu = torch.zeros_like(best)
     bv = torch.zeros_like(best)
 
-    def on_subblock(ids, first, rows):
+    def on_subblock(ids, first):
+        t, u, v, n = _subblock_hits(geom_rows, of[ids], df[ids], first)
         if work is not None:
-            work[ids, 1] += rows.shape[0]
-        t, u, v, _ = ray_triangle_edges(
-            of[ids, None], df[ids, None], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
-        )
+            work[ids, 1] += n
         j = torch.argmin(t, dim=-1, keepdim=True)
         tj = t.gather(-1, j)[:, 0]
-        better = tj < best[ids]
+        row = (first + j[:, 0]).to(torch.int32)
+        bt, bi = best[ids], btri[ids]
+        better = (tj < bt) | ((tj == bt) & (bi >= 0) & (row < bi))
         w = ids[better]
         best[w] = tj[better]
-        btri[w] = (first + j[better, 0]).to(torch.int32)
+        btri[w] = row[better]
         bu[w] = u.gather(-1, j)[better, 0]
         bv[w] = v.gather(-1, j)[better, 0]
-        return None
 
-    _walk(clus_rows, sub_rows, geom_rows, of, df, best, work, on_subblock)
+    _walk(clus_rows, sub_rows, geom_rows, of, df, best, live_rays(df, best), work, on_subblock,
+          list_cap)
     return best.reshape(batch), btri.reshape(batch), bu.reshape(batch), bv.reshape(batch)
 
 
-def stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, t_max, work=None):
+def stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, t_max, work=None,
+                              list_cap=LIST_CAP):
     """Plain version of kernel 6: True where a row is hit at t < t_max.
     ``t_max`` is already clipped to the scene-box exit
     (``clipped_t_max``). ``work`` as in the closest-hit version; a ray
@@ -150,21 +221,20 @@ def stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, t_max, work=
     df = d.reshape(-1, 3)
     tm = t_max.reshape(-1)
     occ = torch.zeros(tm.shape, dtype=torch.bool, device=tm.device)
+    walking = live_rays(df, tm)
 
-    def on_subblock(ids, first, rows):
-        t = ray_triangle_edges(
-            of[ids, None], df[ids, None], rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
-        )[0]
+    def on_subblock(ids, first):
+        t, _, _, n = _subblock_hits(geom_rows, of[ids], df[ids], first)
         hit = t < tm[ids, None]
         any_hit = hit.any(dim=-1)
         if work is not None:
-            tested = torch.where(any_hit, hit.to(torch.int32).argmax(dim=-1) + 1, rows.shape[0])
+            tested = torch.where(any_hit, hit.to(torch.int32).argmax(dim=-1) + 1, n)
             work[ids, 1] += tested.to(torch.int32)
         done = ids[any_hit]
         occ[done] = True
-        return done
+        walking[done] = False
 
-    _walk(clus_rows, sub_rows, geom_rows, of, df, tm, work, on_subblock)
+    _walk(clus_rows, sub_rows, geom_rows, of, df, tm, walking, work, on_subblock, list_cap)
     return occ.reshape(batch)
 
 
@@ -176,9 +246,10 @@ def clipped_t_max(clus_rows, o, d, t_max) -> torch.Tensor:
     return torch.minimum(t_max, scene_tcap(clus_rows, o, d)).contiguous()
 
 
-def launch_head(clus_rows, sub_rows, geom_rows) -> tuple:
-    """The arguments kernels 5 and 6 take before the rays."""
-    return (clus_rows, sub_rows, clus_rows.shape[0], geom_rows, geom_rows.shape[0])
+def launch_head(clus_rows, sub_rows, geom_rows, list_cap: int = LIST_CAP) -> tuple:
+    """The arguments kernels 5 and 6 take before the rays (the rows must
+    lie on a 16-byte boundary: the kernels stage them in 16-byte loads)."""
+    return (clus_rows, sub_rows, clus_rows.shape[0], list_cap, geom_rows, geom_rows.shape[0])
 
 
 def stream_trace_surface(clus_rows, geom_rows, o, d, work=None) -> dict:

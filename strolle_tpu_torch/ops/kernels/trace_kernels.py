@@ -18,8 +18,8 @@ import torch
 from ..intersect import fma_cross, fma_dot, ray_triangle_edges
 from . import cuda_lib
 
-#: Most triangles the brute-force kernels take (and the most the JAX
-#: package sends to them).
+#: Most triangles kernel 4 and the megakernel take, as the JAX package
+#: routes them; kernels A and B take any number.
 MAX_TRIS = 1024
 #: Triangles per vectorised step of the plain versions.
 PLAIN_CHUNK = 128
@@ -128,11 +128,6 @@ def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tenso
                   width: int = 12):
     if rows.ndim != 2 or rows.shape[1] != width:
         raise ValueError(f"{name}: rows must be [T, {width}], got {tuple(rows.shape)}")
-    if rows.shape[0] > MAX_TRIS:
-        raise NotImplementedError(
-            f"{name}: {rows.shape[0]} triangles > {MAX_TRIS}; big scenes take "
-            "the stream kernels (stream_kernels.py)"
-        )
     if o.shape != d.shape or o.shape[-1] != 3:
         raise ValueError(f"{name}: o/d must be [..., 3] of one shape")
     for t in (rows, o, d):
@@ -143,7 +138,7 @@ def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tenso
 
 
 def trace_closest_brute(rows, o, d):
-    """Closest hit of rays o/d [..., 3] against packed rows [T, 12].
+    """Closest hit of rays o/d [..., 3] against packed rows [T, 12], any T.
     Returns (t, tri, u, v) over o's batch shape. CPU tensors run the
     plain version; CUDA tensors launch kernel A."""
     _check_inputs("trace_closest_brute", rows, o, d)
@@ -172,8 +167,8 @@ def trace_closest_brute(rows, o, d):
 
 
 def trace_anyhit_brute(rows, o, d, t_max):
-    """Occlusion flag of rays o/d [..., 3] against packed rows [T, 12]:
-    True where any triangle is hit at t < t_max. CPU tensors run the
+    """Occlusion flag of rays o/d [..., 3] against packed rows [T, 12], any
+    T: True where any triangle is hit at t < t_max. CPU tensors run the
     plain version; CUDA tensors launch kernel B."""
     _check_inputs("trace_anyhit_brute", rows, o, d)
     if rows.device.type == "cpu":
@@ -203,6 +198,11 @@ def trace_surface(rows, o, d) -> dict:
     normal [..., 3], uv [..., 2] and mat_id over o's batch shape. CPU
     tensors run the plain version; CUDA tensors launch kernel 4."""
     _check_inputs("trace_surface", rows, o, d, width=28)
+    if rows.shape[0] > MAX_TRIS:
+        raise NotImplementedError(
+            f"trace_surface: {rows.shape[0]} triangles > {MAX_TRIS}; big scenes take "
+            "trace_closest + surface_at or the big-scene kernels"
+        )
     if rows.device.type == "cpu":
         return trace_surface_plain(rows, o, d)
     cuda_lib.check_tensors("trace_surface", rows, o, d)

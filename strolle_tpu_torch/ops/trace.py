@@ -2,22 +2,24 @@
 strolle_tpu/ops/trace.py).
 
 Scenes of up to BRUTE_FORCE_MAX_TRIS triangles go through the
-brute-force kernels of ops/kernels/trace_kernels.py. Bigger scenes with
-a BVH (``bvh.scene_with_bvh``) take the route that BIG_SCENE_STRATEGY
-selects, as in the JAX package: "stream" (the default) the stream
-kernels of ops/kernels/stream_kernels.py; "cluster" the cluster kernels
-of ops/kernels/cluster_kernels.py (or the stream kernels for a scene
-they do not take); "packet" and "jnp" the BVH kernels of
-ops/kernels/bvh_kernels.py where the scene fits them, else the torch
-traversal of bvh/traverse.py, which is also their closest-hit route
-(``trace_closest``). Each kernel runs CUDA on the card and its plain
+brute-force kernels of ops/kernels/trace_kernels.py, and so do bigger
+scenes without a BVH, as in the JAX package: kernels A and B over all
+rows, and ``trace_surface`` through ``trace_closest`` + ``surface_at``.
+Bigger scenes with a BVH (``bvh.scene_with_bvh``) take the route that
+BIG_SCENE_STRATEGY selects, as in the JAX package: "stream" (the
+default) the stream kernels of ops/kernels/stream_kernels.py; "cluster"
+the cluster kernels of ops/kernels/cluster_kernels.py (or the stream
+kernels for a scene they do not take); "packet" and "jnp" the BVH
+kernels of ops/kernels/bvh_kernels.py where the scene fits them, else
+the torch traversal of bvh/traverse.py, which is also their closest-hit
+route (``trace_closest``). Each kernel runs CUDA on the card and its plain
 version on the CPU. Set the strategy as in the JAX package::
 
     import strolle_tpu_torch.ops.trace as trace
     trace.BIG_SCENE_STRATEGY = "packet"
 
-A big scene without a BVH, the alpha restart loop and the mesh sharding
-context are later slices of the port and raise NotImplementedError here.
+The alpha restart loop and the mesh sharding context are later slices
+of the port and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -48,7 +50,9 @@ _KERNEL_ROUTE_BUDGET = 12 * 2**20
 
 
 def is_big(scene: Scene) -> bool:
-    return scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS
+    """Does the scene take a big-scene route (over BRUTE_FORCE_MAX_TRIS
+    triangles, with a BVH)? A big scene without one takes kernels A and B."""
+    return scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS and scene.bvh is not None
 
 
 def _bvh_kernel_fits(scene: Scene) -> bool:
@@ -80,12 +84,6 @@ def cluster_rows(scene: Scene) -> torch.Tensor:
 
 def check_scene_supported(scene: Scene) -> None:
     """Raises for the scene features that later slices of the port add."""
-    if is_big(scene) and scene.bvh is None:
-        raise NotImplementedError(
-            f"{scene.geometry.num_triangles} triangles > {BRUTE_FORCE_MAX_TRIS} without a "
-            "BVH: build it with bvh.scene_with_bvh (the JAX package's brute-force route for "
-            "big scenes is not ported)"
-        )
     if scene.has_alpha:
         raise NotImplementedError(
             "alpha-blended materials (the alpha restart loop) are a later slice of the port "
@@ -146,9 +144,9 @@ def _stream_closest(scene: Scene, o, d) -> dict:
 
 def _trace_closest_kernel(scene: Scene, o, d) -> TriangleHit:
     """The winning triangle on detached rays (kernel A, or for a big scene
-    kernel 5 under "stream" and the torch BVH traversal under the other
-    strategies); t/u/v are then recomputed through that triangle with
-    plain tensor ops, so gradients with respect to rays and vertices
+    with a BVH kernel 5 under "stream" and the torch BVH traversal under
+    the other strategies); t/u/v are then recomputed through that triangle
+    with plain tensor ops, so gradients with respect to rays and vertices
     flow."""
     if is_big(scene):
         if BIG_SCENE_STRATEGY == "stream":
@@ -179,8 +177,9 @@ def trace_closest(scene: Scene, o: torch.Tensor, d: torch.Tensor) -> TriangleHit
 
 def trace_anyhit(scene: Scene, o: torch.Tensor, d: torch.Tensor, t_max) -> torch.Tensor:
     """Occlusion query: True where any triangle lies within t_max (kernel
-    B; for a big scene kernel 6, 9 or 11 or the torch BVH traversal, by
-    the strategy; on detached rays: a boolean carries no gradient)."""
+    B; for a big scene with a BVH kernel 6, 9 or 11 or the torch BVH
+    traversal, by the strategy; on detached rays: a boolean carries no
+    gradient)."""
     check_scene_supported(scene)
     t_max = torch.broadcast_to(torch.as_tensor(t_max, device=o.device), o.shape[:-1])
     t_max = t_max.detach().to(torch.float32).contiguous()
@@ -219,10 +218,13 @@ def trace_surface(
     ``surface_at`` resolves it; a scene too big for kernel 10 takes
     trace_closest + surface_at. ``False`` takes trace_closest +
     surface_at, whose t/u/v are recomputed through the winner with tensor
-    ops so that gradients flow (the differentiable path). ``regularize``
-    clamps roughness for indirect bounces."""
+    ops so that gradients flow (the differentiable path), as does a
+    scene over BRUTE_FORCE_MAX_TRIS triangles without a BVH (kernel A).
+    ``regularize`` clamps roughness for indirect bounces."""
     check_scene_supported(scene)
-    if use_pallas is False:
+    if use_pallas is False or (
+        scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS and scene.bvh is None
+    ):
         hit = trace_closest(scene, o, d)
         return surface_at(scene, o, d, hit, regularize=regularize)
     if is_big(scene) and _stream_route(scene):

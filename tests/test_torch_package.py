@@ -1,16 +1,23 @@
 """The port's package boundaries: no JAX inside it, the card by default,
-and a loud refusal of the paths that later slices port (the alpha
-restart loop, big scenes without a BVH, the mesh sharding context)."""
+a loud refusal of the paths that later slices port (the alpha restart
+loop, the mesh sharding context), and big scenes without a BVH traced
+through kernels A and B as the JAX package traces them."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 
-from strolle_tpu_torch.camera import make_camera
+from strolle_tpu.ops import trace as jax_trace
+from strolle_tpu.scene.cornell import cornell_box as jax_cornell_box
+from strolle_tpu_torch import convert
+from strolle_tpu_torch.camera import make_camera, pixel_rays, screen_grid
 from strolle_tpu_torch.models.reference import trace_sample
 from strolle_tpu_torch.models.restir import init_state
 from strolle_tpu_torch.ops.kernels import ref_kernel, trace_kernels
@@ -33,7 +40,8 @@ def _imported_modules(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "strolle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "strolle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "stream_turns.py"]
     assert len(files) > 10
     pkg = ROOT / "strolle_tpu_torch"
     for module in ("bvh/traverse.py", "ops/kernels/cluster_kernels.py",
@@ -71,29 +79,20 @@ def test_unported_paths_raise():
     cam = cornell_camera(4, 4, device="cpu")
     with pytest.raises(ValueError, match="megakernel"):
         trace_sample(scene, cam, 1, depth=1, include_sky=True, use_megakernel=True)
-    # a big scene without a BVH (the JAX package's brute-force route for
-    # it is not ported), and the alpha restart loop
-    g = scene.geometry
-    big = scene.replace(geometry=Geometry(
-        *(torch.cat([getattr(g, f)] * 29) for f in ("positions", "normals", "uvs", "tangents",
-                                                    "material_id"))))
-    assert big.geometry.num_triangles > 1024
-    for bad, match in ((big, "1024"), (scene.replace(has_alpha=True), "alpha")):
-        for mk in (None, False):
-            with pytest.raises(NotImplementedError, match=match):
-                trace_sample(bad, cam, 1, depth=1, include_sky=False, use_megakernel=mk)
+    # the alpha restart loop
+    alpha = scene.replace(has_alpha=True)
+    for mk in (None, False):
+        with pytest.raises(NotImplementedError, match="alpha"):
+            trace_sample(alpha, cam, 1, depth=1, include_sky=False, use_megakernel=mk)
     o = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="1024"):
-        trace_kernels.trace_closest_brute(torch.zeros(1032, 12), o, o)
     for strategy in ("stream", "cluster", "packet", "jnp"):
         trace_mod.BIG_SCENE_STRATEGY = strategy
         try:
             for use_pallas in (None, True, False):
-                for bad in (big, scene.replace(has_alpha=True)):
-                    with pytest.raises(NotImplementedError):
-                        trace_surface(bad, o, o, use_pallas=use_pallas)
-                    with pytest.raises(NotImplementedError):
-                        trace_mod.trace_anyhit(bad, o, o, 1.0)
+                with pytest.raises(NotImplementedError):
+                    trace_surface(alpha, o, o, use_pallas=use_pallas)
+                with pytest.raises(NotImplementedError):
+                    trace_mod.trace_anyhit(alpha, o, o, 1.0)
         finally:
             trace_mod.BIG_SCENE_STRATEGY = "stream"
     with pytest.raises(NotImplementedError, match="multi-device"):
@@ -119,3 +118,67 @@ def test_wrappers_reject_bad_inputs():
             o, o, torch.zeros(4, dtype=torch.int32), depth=1,
         )
     assert np.isfinite(trace_kernels.trace_closest_brute(torch.zeros(8, 12), o, o)[0].numpy()).sum() == 0
+
+
+def _big_cornell():
+    """Cornell's 36 triangles 29 times over (1,044, no BVH) in both
+    packages: every triangle has 28 exact copies, so ties abound."""
+    from strolle_tpu.scene.types import Geometry as JaxGeometry
+    from torch_port_arrays import scene_arrays
+
+    js = jax_cornell_box()
+    g = js.geometry
+    jbig = dataclasses.replace(js, geometry=JaxGeometry(
+        *(jnp.concatenate([getattr(g, f)] * 29) for f in ("positions", "normals", "uvs",
+                                                          "tangents", "material_id"))))
+    return jbig, convert.scene_from_arrays(scene_arrays(jbig), device="cpu")
+
+
+def test_big_scene_without_bvh_matches_jax():
+    """A scene over 1024 triangles without a BVH: trace_closest and
+    trace_anyhit take kernels A and B over all rows and trace_surface takes
+    trace_closest + surface_at, as the JAX package's brute route does on
+    the CPU; tri and occlusion exact, t/u/v within 1e-5. Kernel 4 and the
+    megakernel keep their 1024-triangle gate."""
+    from strolle_tpu_torch.ops.trace import trace_anyhit, trace_closest
+
+    jbig, big = _big_cornell()
+    assert big.geometry.num_triangles == 1044 and big.bvh is None
+    # 16x16 primary rays and 16x16 rays from inside the box, one batch
+    cam = cornell_camera(16, 16, device="cpu")
+    po, pd = pixel_rays(cam, screen_grid(cam))
+    rs = np.random.RandomState(2)
+    ro = rs.uniform(-0.9, 0.9, (16, 16, 3)).astype(np.float32) + np.float32([0, 1, 0])
+    rd = rs.normal(size=(16, 16, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    o, d = np.stack([po.numpy(), ro]), np.stack([pd.numpy(), rd])
+    to, td = torch.tensor(o), torch.tensor(d)
+    jo, jd = jnp.asarray(o), jnp.asarray(d)
+    hit = trace_closest(big, to, td)
+    want = jax.jit(jax_trace.trace_closest)(jbig, jo, jd)
+    np.testing.assert_array_equal(hit.tri.numpy(), np.asarray(want.tri))
+    assert (hit.tri >= 0).float().mean() > 0.5
+    for k in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(hit, k).numpy(), np.asarray(getattr(want, k)),
+                                   rtol=0, atol=1e-5, err_msg=k)
+    # half the rays end before their closest hit
+    scale = rs.uniform(0.5, 1.5, o.shape[:-1]).astype(np.float32)
+    t_max = np.where(np.isfinite(hit.t.numpy()), hit.t.numpy() * scale, 1.0)
+    occ = trace_anyhit(big, to, td, torch.tensor(t_max))
+    np.testing.assert_array_equal(
+        occ.numpy(), np.asarray(jax.jit(jax_trace.trace_anyhit)(jbig, jo, jd, jnp.asarray(t_max))))
+    assert 0 < occ.float().mean() < 1
+    surf = trace_surface(big, to, td)
+    jsurf = jax.jit(jax_trace.trace_surface)(jbig, jo, jd)
+    for k in ("tri", "is_some", "material_id"):
+        np.testing.assert_array_equal(getattr(surf, k).numpy(), np.asarray(getattr(jsurf, k)),
+                                      err_msg=k)
+    for k in ("point", "normal", "uv", "depth", "base_color"):
+        np.testing.assert_allclose(getattr(surf, k).numpy(), np.asarray(getattr(jsurf, k)),
+                                   rtol=0, atol=1e-5, err_msg=k)
+    cam = cornell_camera(4, 4, device="cpu")
+    for mk in (None, False):
+        img = trace_sample(big, cam, 1, depth=1, include_sky=False, use_megakernel=mk)
+        assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
+    with pytest.raises(ValueError, match="megakernel"):
+        trace_sample(big, cam, 1, depth=1, include_sky=False, use_megakernel=True)

@@ -1,7 +1,9 @@
 """Kernels 5 and 6 (ops/kernels/stream_kernels.py): the cluster host code
 and the plain versions against the JAX package's stream kernels in
 interpret mode and its brute-force trace, on a soup of
-CLUSTER_TRIS*3+57 triangles (four clusters, the last one ragged)."""
+CLUSTER_TRIS*3+57 triangles (four clusters, the last one ragged); the
+warps' front-to-back walk against the index-order walk (a list cap of
+0), its tie rule and its stop."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,7 @@ import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 from strolle_tpu.ops.pallas import stream_kernels as jsk
 from strolle_tpu.ops.pallas.cluster_kernels import CLUSTER_TRIS, clusterize_bvh
 from strolle_tpu.ops.trace import trace_anyhit_brute, trace_closest_brute
+from strolle_tpu_torch.ops.intersect import ray_triangle_edges, safe_inv_dir, slab
 from strolle_tpu_torch.ops.kernels import cuda_lib
 from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 from tests.test_bvh_kernels import _packed, _rays, _soup_scene
@@ -85,14 +88,17 @@ def test_closest_plain_matches_jax(soup, rays):
                                    rtol=1e-5, atol=ATOL, err_msg=k)
     np.testing.assert_allclose(got["t"].numpy()[hit], np.asarray(brute.t).reshape(hit.shape)[hit],
                                rtol=1e-5, atol=ATOL)
-    # a ray inside the scene box tests all 4 cluster boxes, entered
-    # clusters add 8 sub-block tests and entered sub-blocks up to 32
-    # triangle tests; a ray that misses the box tests nothing
+    # a ray inside the scene box tests all 4 cluster boxes for its warp's
+    # list, re-tests each cluster its warp walks (at most 4) and adds 8
+    # sub-block tests for each it enters (at most those it re-tested) and
+    # up to 32 triangle tests for each sub-block it enters; a ray that
+    # misses the box tests nothing
     w = work.numpy()
     live = sk.scene_tcap(clus, _t(o), _t(d)).numpy().reshape(-1) > 0
     assert (w[~live] == 0).all() and (w[live, 0] >= 4).all()
-    assert ((w[live, 0] - 4) % 8 == 0).all()
-    assert (w[live, 1] <= (w[live, 0] - 4) // 8 * 8 * 32).all()
+    retests, entered = (w[live, 0] - 4) % 8, (w[live, 0] - 4) // 8
+    assert (retests <= 4).all() and (entered <= retests).all()
+    assert (w[live, 1] <= entered * 8 * 32).all()
 
 
 @pytest.mark.parametrize("t_max", [2.5, 0.0, np.inf])
@@ -145,3 +151,123 @@ def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
         sk.stream_trace_surface(clus[:2], trows, o, d)
     with pytest.raises(NotImplementedError):
         sk.clusterize_bvh(None, 10)
+
+
+def _coherent_rays(rows):
+    """8 warps of 32 rays, each warp from one origin 9 units off a soup
+    triangle's face in a narrow cone toward its centroid: every ray hits
+    near there, so the front-to-back walk's stop fires."""
+    rs = np.random.RandomState(5)
+    rows = rows.numpy()
+    o, d = [], []
+    for j in rs.choice(rows.shape[0] // 2, 8, replace=False):
+        v0, e1, e2 = rows[j, 0:3], rows[j, 3:6], rows[j, 6:9]
+        n = np.cross(e1, e2)
+        n /= np.linalg.norm(n)
+        c = v0 + (e1 + e2) / 3.0
+        origin = c + 9.0 * n
+        aim = c + 0.02 * rs.uniform(-1.0, 1.0, (sk.TILE_RAYS, 1)) * (e1 + e2) - origin
+        o.append(np.repeat(origin[None], sk.TILE_RAYS, axis=0))
+        d.append(aim / np.linalg.norm(aim, axis=-1, keepdims=True))
+    return np.concatenate(o).astype(np.float32), np.concatenate(d).astype(np.float32)
+
+
+def _plain_pair(clus, trows, o, d, list_cap, t_max=None):
+    """Kernel 5's or 6's plain version (with t_max) under ``list_cap``,
+    with its per-ray work."""
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    subs = sk.sub_aabbs(clus, trows)
+    work = torch.zeros((o.shape[0], 2), dtype=torch.int32)
+    if t_max is None:
+        out = sk.stream_trace_surface_plain(clus, subs, trows, o, d, sk.scene_tcap(clus, o, d),
+                                            work, list_cap=list_cap)
+    else:
+        tm = sk.clipped_t_max(clus, o, d, torch.full((o.shape[0],), t_max))
+        out = (sk.stream_trace_anyhit_plain(clus, subs, trows, o, d, tm, work,
+                                            list_cap=list_cap),)
+    return out, work
+
+
+@pytest.mark.parametrize("rays", ["around", "inside", "coherent"])
+def test_warp_walk_equals_index_order_walk(soup, rays):
+    """Front to back by warps (the default list cap) and in index order (a
+    cap of 0: every warp overflows) give the same t, tri, u, v and flags,
+    bit for bit; the index-order walk re-tests every cluster (4 list tests,
+    4 re-tests and 8 for each entered cluster)."""
+    _, _, _, clus, trows = soup
+    o, d = (_t(x) for x in (_ray_set(rays) if rays != "coherent" else _coherent_rays(trows)))
+    for t_max in (None, 2.5, np.inf):
+        got, _ = _plain_pair(clus, trows, o, d, sk.LIST_CAP, t_max)
+        want, iwork = _plain_pair(clus, trows, o, d, 0, t_max)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), t_max
+        live = iwork[:, 0] > 0
+        if t_max is None:
+            assert ((iwork[live, 0] - 8) % 8 == 0).all()
+
+
+def _tie_scene():
+    """Two clusters that both hold one triangle T (rows 5 and 263), in the
+    plane x = 0. The rest lies off the rays' paths or behind T: cluster 0
+    reaches to x = -1 (row 0, far above) and x = 12, cluster 1 spans
+    x = -2.5 .. 0, so rays from x = -3 toward T meet cluster 1's box first."""
+    rs = np.random.RandomState(3)
+    tri = np.array([[0.0, -0.5, -0.5], [0.0, 0.5, -0.5], [0.0, 0.0, 0.5]], np.float32)
+    small = rs.uniform(0.0, 0.2, (2 * sk.CLUSTER_TRIS, 3, 3)).astype(np.float32)
+    pos = np.empty_like(small)
+    pos[:256] = small[:256] + rs.uniform([10, -1, -1], [12, 1, 1], (256, 1, 3))
+    pos[256:] = small[256:] + rs.uniform([-2.5, 3, -1], [-0.7, 5, 1], (256, 1, 3))
+    pos[0] = small[0] + np.array([-1.0, 5.0, 0.0], np.float32)
+    pos[5] = pos[263] = tri
+    positions = torch.tensor(pos)
+    rows = torch.cat([positions[:, 0], positions[:, 1] - positions[:, 0],
+                      positions[:, 2] - positions[:, 0], torch.zeros(pos.shape[0], 19)], dim=-1)
+    return sk.clusterize_bvh(None, pos.shape[0], positions), rows
+
+
+def test_exact_tie_goes_to_the_lowest_row_in_either_order():
+    clus, rows = _tie_scene()
+    rs = np.random.RandomState(4)
+    n = 2 * sk.TILE_RAYS
+    o = np.stack([np.full(n, -3.0), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.2, 0.2, n)], -1)
+    aim = np.stack([np.zeros(n), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.3, 0.1, n)], -1) - o
+    o, d = _t(o.astype(np.float32)), _t((aim / np.linalg.norm(aim, axis=-1,
+                                                               keepdims=True)).astype(np.float32))
+    ids, _, count = sk.warp_lists(clus, o, d, sk.scene_tcap(clus, o, d))
+    # the front-to-back walk meets row 263's cluster first
+    assert (count == 2).all() and (ids[:, 0] == 1).all()
+    for cap in (sk.LIST_CAP, 0):
+        (t, tri, _, _), _ = _plain_pair(clus, rows, o, d, cap)
+        assert (tri == 5).all(), cap
+    for cap in (sk.LIST_CAP, 0):
+        (occ,), _ = _plain_pair(clus, rows, o, d, cap, t_max=np.inf)
+        assert occ.all()
+
+
+def test_warp_lists_sorted_and_stop_skips_no_closer_hit(soup):
+    _, _, _, clus, trows = soup
+    o, d = (_t(x) for x in _coherent_rays(trows))
+    tcap = sk.scene_tcap(clus, o, d)
+    ids, keys, count = sk.warp_lists(clus, o, d, tcap)
+    # the entered clusters, sorted by (key, id); the rest after them
+    inside, _ = slab(clus[:, 0:3], clus[:, 3:6], o[:, None], safe_inv_dir(d)[:, None],
+                     tcap[:, None])
+    entered = (inside & sk.live_rays(d, tcap)[:, None]).reshape(-1, sk.TILE_RAYS, 4).any(1)
+    for w in range(ids.shape[0]):
+        n = int(count[w])
+        assert set(ids[w, :n].tolist()) == set(entered[w].nonzero()[:, 0].tolist())
+        assert (keys[w, :n].diff() >= 0).all() and torch.isinf(keys[w, n:]).all()
+    t, _, _, _ = sk.stream_trace_surface_plain(clus, sk.sub_aabbs(clus, trows), trows, o, d, tcap)
+    # best t only falls during the walk, so a warp stops at or before its
+    # first entry keyed past the largest of its rays' results
+    last = t.reshape(-1, sk.TILE_RAYS).amax(dim=1)
+    skipped = [(w, k) for w in range(ids.shape[0])
+               for k, key in zip(ids[w, :int(count[w])].tolist(), keys[w].tolist())
+               if key > last[w]]
+    assert skipped
+    for w, k in skipped:
+        rays = slice(w * sk.TILE_RAYS, (w + 1) * sk.TILE_RAYS)
+        r = trows[k * sk.CLUSTER_TRIS:(k + 1) * sk.CLUSTER_TRIS]
+        th = ray_triangle_edges(o[rays, None], d[rays, None], r[:, 0:3], r[:, 3:6], r[:, 6:9])[0]
+        # no hit in a skipped cluster comes before the ray's result
+        assert (th >= t[rays, None]).all(), (w, k)
