@@ -3,7 +3,9 @@
 Run from the root of the repository:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   strolle_tpu_torch/csrc with one nvcc command.
+   strolle_tpu_torch/csrc with one nvcc command, and prints kernel B's
+   and kernel C's instructions per ray-triangle test as compiled (where
+   the toolkit has cuobjdump).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: kernels A and B (brute closest hit / any hit)
    on 800x608 Cornell primary rays and on seeded random rays, kernel C
@@ -89,6 +91,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -122,11 +126,16 @@ FLAT_WIDTH, FLAT_HEIGHT = 200, 152
 #: tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: fp32 operations of one ray-triangle test as compiled (an fma counts
-#: 2): Möller-Trumbore 46, Baldwin-Weber 31. Shading of one ray-bounce
-#: in the megakernel, counted from csrc/ref_megakernel.cu with each
+#: fp32 operations of one ray-triangle test (an fma counts 2), in the
+#: two parts a kernel may stop between: Möller-Trumbore 46, of which 24
+#: reach the determinant's test and u (pvec 9, det 5, the reciprocal 1,
+#: tvec 3, u 6) and 22 the rest (qvec 9, v 6, t 6, u + v 1); Baldwin-Weber
+#: 31, of which 12 reach the plane's t (nd 5, no 5, subtract 1, divide 1)
+#: and 19 the rest (p 6, u 6, v 6, u + v 1). Shading of one ray-bounce in
+#: the megakernel, counted from csrc/ref_megakernel.cu with each
 #: sqrt/sin/cos/rsqrt/div as 1: ~190 without the metal lobe, ~420 with.
-FLOPS_MT, FLOPS_BW = 46, 31
+FLOPS_MT, FLOPS_MT_FRONT = 46, 24
+FLOPS_BW_PLANE, FLOPS_BW_INSIDE = 12, 19
 #: Kernel 4's resolve of a hit ray's winner, counted from
 #: csrc/trace_kernels.cu with an fma as 2 and fmax/sqrt/div/compare/cvt
 #: as 1: pvec 9, det 5, sign 1, barycentric w 2, normal 15, |n|^2 5,
@@ -220,6 +229,60 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
     }
 
 
+#: The kernels whose instructions per ray-triangle test sass_per_test
+#: counts: B, and C in its default (flat, no_metal) variant.
+SASS_KERNELS = {"B": "anyhit_brute_kernel", "C": "ref_megakernelILb1ELb1E"}
+
+
+def sass_per_test(lib) -> dict | None:
+    """Instructions per ray-triangle test of kernels B and C as compiled,
+    from ``cuobjdump -sass`` of the built library: for each innermost loop
+    over rows (a backward branch whose body reads each row it tests with
+    three shared-memory loads), the instructions of its body (all paths,
+    the division's rare slow path included) over the rows a pass tests,
+    and those up to a warp's any-vote and its branch (what a row costs
+    where the vote skips the rest). None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    fns: dict[str, list] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = fns.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    result = {}
+    for key, pattern in SASS_KERNELS.items():
+        ins = next(v for name, v in fns.items() if pattern in name)
+        spans = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\S*\s+(?:!?U?P\w+,\s*)?`?\(?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                spans.append((int(m.group(1), 16), addr))
+        loops = []
+        for lo, hi in spans:
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+                continue  # not innermost
+            body = [t for a, t in ins if lo <= a <= hi]
+            loads = sum(1 for t in body if re.match(r"(@!?U?P\w+\s+)?LDS\b", t))
+            if loads == 0 or loads % 3:
+                continue
+            rows = loads // 3
+            votes = [j for j, t in enumerate(body) if "VOTE.ANY" in t]
+            loops.append({"instructions": len(body), "rows": rows,
+                          "per_test": len(body) / rows,
+                          "before_vote": (votes[0] + 2) / rows if votes else None})
+        result[key] = loops
+    return result
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -256,19 +319,27 @@ def perturbed(scene, seed: int = 4):
     return scene.replace(geometry=geom, **compute_static_flags(geom, scene.materials))
 
 
-def anyhit_tests(rows, o, d, t_max, chunk: int = 256) -> int:
-    """Ray-triangle tests kernel B makes: up to the first occluder."""
+def anyhit_flops(rows, o, d, t_max, chunk: int = 256) -> int:
+    """Operations kernel B needs, ray by ray: each row up to the first
+    occluder through u (FLOPS_MT_FRONT), and the rest of the test where
+    |det| >= eps and 0 <= u <= 1."""
+    from strolle_tpu_torch.ops.intersect import F32_EPS
     from strolle_tpu_torch.ops.kernels.trace_kernels import _row_isect
 
     o, d, t_max = o.reshape(-1, 1, 3), d.reshape(-1, 1, 3), t_max.reshape(-1, 1)
-    tested = torch.full(t_max.shape[:1], rows.shape[0], dtype=torch.int64, device=o.device)
-    found = torch.zeros_like(tested, dtype=torch.bool)
+    done = torch.zeros(t_max.shape[:1], dtype=torch.bool, device=o.device)
+    tests = fronts = 0
     for c0 in range(0, rows.shape[0], chunk):
-        hits = _row_isect(rows[c0:c0 + chunk], o, d)[0] < t_max
-        first = hits.any(-1) & ~found
-        tested = torch.where(first, c0 + hits.int().argmax(-1) + 1, tested)
-        found |= first
-    return int(tested.sum())
+        t, u, _, det = _row_isect(rows[c0:c0 + chunk], o, d)
+        hits = t < t_max
+        # rows tested: up to and including the first occluder
+        last = torch.where(hits.any(-1), hits.int().argmax(-1) + 1, hits.shape[1])
+        tested = (torch.arange(hits.shape[1], device=o.device) < last[:, None]) & ~done[:, None]
+        front = (det.abs() >= F32_EPS) & (u >= 0.0) & (u <= 1.0)
+        tests += int(tested.sum())
+        fronts += int((tested & front).sum())
+        done |= hits.any(-1)
+    return tests * FLOPS_MT_FRONT + fronts * (FLOPS_MT - FLOPS_MT_FRONT)
 
 
 def bounce0_shadow_rays(scene, cam, seed):
@@ -457,6 +528,19 @@ def stream_ray_sets(scene, cam, device, luts) -> dict:
     po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
     surf = trace_surface(scene, po, pd)
     sun = sun_direction(scene.sun_azimuth, scene.sun_altitude, device=device)
+    return {
+        "primary": (po.contiguous(), pd.contiguous(), None),
+        "lights": (so, sd, slen),
+        "sun": (surf.point.contiguous(), sun.expand_as(surf.point).contiguous(),
+                torch.full(po.shape[:-1], math.inf, device=device)),
+        "random": level_random_rays(scene, device),
+        "gi": gi_shadow_rays(scene, cam, luts),
+    }
+
+
+def level_random_rays(scene, device):
+    """STREAM_RANDOM_RAYS seeded rays from inside the level's cluster
+    boxes in uniform random directions, t_max in [0.05, 5): (o, d, t_max)."""
     lo = scene.clusters[:, 0:3].amin(0).cpu().numpy()
     hi = scene.clusters[:, 3:6].amax(0).cpu().numpy()
     rs = np.random.RandomState(11)
@@ -465,14 +549,7 @@ def stream_ray_sets(scene, cam, device, luts) -> dict:
     rd = rs.normal(size=(n, 3)).astype(np.float32)
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
     rt = rs.uniform(0.05, 5.0, n).astype(np.float32)
-    return {
-        "primary": (po.contiguous(), pd.contiguous(), None),
-        "lights": (so, sd, slen),
-        "sun": (surf.point.contiguous(), sun.expand_as(surf.point).contiguous(),
-                torch.full(po.shape[:-1], math.inf, device=device)),
-        "random": tuple(torch.tensor(x, device=device) for x in (ro, rd, rt)),
-        "gi": gi_shadow_rays(scene, cam, luts),
-    }
+    return tuple(torch.tensor(x, device=device) for x in (ro, rd, rt))
 
 
 def gi_shadow_rays(scene, cam, luts):
@@ -1450,6 +1527,9 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
     print(f"build: {build_s:.1f} s ({len(cuda_lib.sources())} sources, one nvcc)", flush=True)
+    sass = sass_per_test(cuda_lib.build())
+    print(f"SASS instructions per ray-triangle test (kernel B; kernel C flat, no metal: "
+          f"closest hit, shadow): {sass}", flush=True)
     t0 = time.perf_counter()
     native.library()
     native_s = time.perf_counter() - t0
@@ -1695,7 +1775,8 @@ def main() -> int:
                       warmup=1, iters=3)
     work = {}
     rk.trace_sample_megakernel_plain(**args, depth=DEPTH, counts=work)
-    flops_c = ((work["closest_tests"] + work["anyhit_tests"]) * FLOPS_BW
+    flops_c = ((work["closest_tests"] + work["anyhit_tests"]) * FLOPS_BW_PLANE
+               + (work["closest_inside"] + work["anyhit_inside"]) * FLOPS_BW_INSIDE
                + work["ray_bounces"] * FLOPS_SHADE[args["no_metal"]])
     bytes_c = (4 * (args["tri_rows"].numel() + args["mat_rows"].numel()
                     + args["light_rows"].numel()) + r * (24 + 8) + r * 12)
@@ -1711,8 +1792,7 @@ def main() -> int:
     ms_b = time_ms(lambda: tk.trace_anyhit_brute(rows, so, sd, slen))
     plain_b = time_ms(lambda: tk.trace_anyhit_brute_plain(rows, so, sd, slen),
                       warmup=1, iters=5)
-    bound_b, by_b = bound(anyhit_tests(rows, so, sd, slen) * FLOPS_MT,
-                          4 * rows.numel() + r * 28 + r)
+    bound_b, by_b = bound(anyhit_flops(rows, so, sd, slen), 4 * rows.numel() + r * 28 + r)
 
     # kernels A and B over the BVH-less dungeon's rows on its random rays
     fn = fo.numel() // 3
@@ -1724,7 +1804,7 @@ def main() -> int:
     ms_b_flat = time_ms(lambda: tk.trace_anyhit_brute(flat_rows, fo, fd, ft))
     plain_b_flat = time_ms(lambda: tk.trace_anyhit_brute_plain(flat_rows, fo, fd, ft),
                            warmup=1, iters=3)
-    bound_b_flat = bound(anyhit_tests(flat_rows, fo, fd, ft) * FLOPS_MT,
+    bound_b_flat = bound(anyhit_flops(flat_rows, fo, fd, ft),
                          4 * flat_rows.numel() + fn * 28 + fn)
     brute_flat = {"rays": fn, "rows": flat_rows.shape[0],
                   "A": {"ms": ms_a_flat, "plain_ms": plain_a_flat, "bound_ms": bound_a_flat[0],
@@ -1852,6 +1932,7 @@ def main() -> int:
         "rays_per_frame": rays,
         "megakernel_work": work,
         "build_s": build_s,
+        "sass_per_test": sass,
         "profile_mega": profile_frames(
             lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False)),
         "profile_staged": profile_frames(

@@ -10,17 +10,30 @@
 // the JAX package's kernel and of the plain version in
 // ops/kernels/ref_kernel.py, so a pixel matches sample for sample.
 //
-// What bounds it on this card: operations. A ray reads 28 bytes and
-// writes 12; everything else (up to 2 x (depth + 1) x T ray-triangle
-// tests plus shading) stays in registers. The TPU kernel broadcast one
-// row per step over (128, 128) ray planes and selected materials and
-// lights with masked loops because its vector unit cannot gather. Here it
-// is one thread per ray; the block copies the triangle, material and
-// light rows into shared memory once (up to 96 KB of triangle rows at
-// T = 1024, so the launch raises the dynamic shared-memory limit), every
-// row read in the loops is a warp-wide broadcast, and material and light
-// rows are indexed directly. The closest-hit loop keeps only the winning
-// index and reads the winner's normals and material afterwards.
+// What bounds it on this card: operations, and of those the
+// ray-triangle tests (2 x (depth + 1) x T per ray, against ~190
+// operations of shading per bounce). A ray reads 28 bytes and writes 12;
+// everything else stays in registers. The TPU kernel broadcast one row
+// per step over (128, 128) ray planes and selected materials and lights
+// with masked loops because its vector unit cannot gather. Here it is
+// one thread per ray, and the design cuts what a test issues:
+// - The test fuses its multiply-adds as XLA does (below), which also
+//   takes about a sixth of its instructions away (PERF.md).
+// - It is split in two (bw_plane, bw_inside): the shadow loop computes
+//   p, u and v only where the plane lies ahead before the light (a
+//   branch that a warp skips when none of its lanes needs it), and a
+//   warp leaves it once all its lanes have an occluder. The operations
+//   and their order are those of one whole test, so the results are
+//   bit-identical. (An explicit warp vote before p, u and v, in either
+//   loop, measured no faster: most warps hold a lane that needs them.)
+// - The block stages only the 12 floats of each row that the test
+//   reads, as three float4: a row is three 16-byte shared-memory
+//   broadcasts, and 1024 rows take 48 KB, not 96 KB (twice the resident
+//   blocks at the megakernel's limit). The winner's normals and material
+//   are read from device memory once a bounce. Staging is a few loads per
+//   thread against thousands of tests, so the grid stays one thread per
+//   ray in blocks of 128; registers (64-72) allow 7-8 blocks an SM.
+// Material and light rows are staged too and indexed directly.
 //
 // Specialisation: FLAT (all vertex normals equal and unit: no barycentric
 // interpolation) and NO_METAL (no metallic material in use: the GGX lobe
@@ -29,9 +42,11 @@
 // non-finite throughput propagates the same way.
 //
 // Floating point: built with --fmad=false and no fast math (see
-// ops/kernels/cuda_lib.py), so every operation rounds as in the plain
-// PyTorch version; the remaining differences against it come from
-// library sinf/cosf/rsqrtf where PyTorch's CPU math differs.
+// ops/kernels/cuda_lib.py), with explicit fmaf exactly where XLA:CPU
+// fuses the JAX kernel's _bw_isect (and where the plain version
+// emulates it); every other operation rounds as in the plain PyTorch
+// version. The remaining differences against it come from library
+// sinf/cosf/rsqrtf where PyTorch's CPU math differs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,6 +65,7 @@ constexpr float kInvPi = static_cast<float>(1.0 / 3.14159265358979323846);
 constexpr float kF90Scale = static_cast<float>(50.0 * 0.33);
 constexpr float kInvU32 = 1.0f / 4294967296.0f;  // 4294967295.0f == 2^32 in float32
 constexpr int kTriWidth = 24;
+constexpr int kRowQuads = 3;  // the float4 of a row that the test reads
 constexpr int kMatWidth = 12;
 constexpr int kLightWidth = 13;
 constexpr int kThreads = 128;
@@ -83,24 +99,28 @@ __device__ __forceinline__ float next_f32(uint32_t& state) {
   return __uint2float_rn(next_u32(state)) * kInvU32;
 }
 
-struct BwHit {
-  float t, u, v, nd;
-};
+// The plane part of one Baldwin-Weber test against the row's first four
+// floats (n, d0): nd = n . d (Möller-Trumbore's det is -nd) and the
+// distance t to the plane; plane is false where the ray runs
+// parallel to it (|nd| < eps), and then no hit is possible.
+__device__ __forceinline__ float bw_plane(float4 r0, V3 o, V3 d, float& nd, bool& plane) {
+  nd = fmaf(r0.z, d.z, fmaf(r0.x, d.x, r0.y * d.y));
+  const float no = fmaf(r0.z, o.z, fmaf(r0.x, o.x, r0.y * o.y));
+  plane = !(fabsf(nd) < kEps);
+  return (r0.w - no) / (plane ? nd : 1.0f);
+}
 
-// One Baldwin-Weber row against a ray; t = +inf on a miss. n is the
-// unnormalised e1 x e2, so Möller-Trumbore's det is -nd.
-__device__ __forceinline__ BwHit bw_isect(const float* r, V3 o, V3 d) {
-  const float nd = r[0] * d.x + r[1] * d.y + r[2] * d.z;
-  const float no = r[0] * o.x + r[1] * o.y + r[2] * o.z;
-  const bool miss_plane = fabsf(nd) < kEps;
-  const float t = (r[3] - no) / (miss_plane ? 1.0f : nd);
-  const float px = o.x + t * d.x;
-  const float py = o.y + t * d.y;
-  const float pz = o.z + t * d.z;
-  const float u = r[4] * px + r[5] * py + r[6] * pz + r[7];
-  const float v = r[8] * px + r[9] * py + r[10] * pz + r[11];
-  const bool hit = !miss_plane && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
-  return {hit ? t : INFINITY, u, v, nd};
+// The rest of the test: the hit point p = o + t d in the row's
+// barycentric planes (T1 d1, T2 d2) gives u and v; true where the
+// point lies inside the triangle. A hit is plane && t > 0 && inside.
+__device__ __forceinline__ bool bw_inside(float4 r1, float4 r2, V3 o, V3 d, float t,
+                                          float& u, float& v) {
+  const float px = fmaf(t, d.x, o.x);
+  const float py = fmaf(t, d.y, o.y);
+  const float pz = fmaf(t, d.z, o.z);
+  u = fmaf(r1.z, pz, fmaf(r1.x, px, r1.y * py)) + r1.w;
+  v = fmaf(r2.z, pz, fmaf(r2.x, px, r2.y * py)) + r2.w;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
 }
 
 __device__ __forceinline__ float ggx_distribution(float n_dot_h, float a) {
@@ -143,16 +163,21 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ o, const float* __restrict__ d,
                    const int64_t* __restrict__ state0, int n_rays, int depth,
                    float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* s_tri = smem;
-  float* s_mat = s_tri + kTriWidth * n_tris;
+  // three float4 per row: (n, d0), (T1, d1), (T2, d2)
+  extern __shared__ float4 s_rows[];
+  float* s_mat = reinterpret_cast<float*>(s_rows + kRowQuads * n_tris);
   float* s_light = s_mat + kMatWidth * n_mats;
-  for (int j = threadIdx.x; j < kTriWidth * n_tris; j += blockDim.x) s_tri[j] = tris[j];
+  for (int j = threadIdx.x; j < kRowQuads * n_tris; j += blockDim.x) {
+    const float* r = tris + kTriWidth * (j / kRowQuads) + 4 * (j % kRowQuads);
+    s_rows[j] = make_float4(r[0], r[1], r[2], r[3]);
+  }
   for (int j = threadIdx.x; j < kMatWidth * n_mats; j += blockDim.x) s_mat[j] = mats[j];
   for (int j = threadIdx.x; j < kLightWidth * n_lights; j += blockDim.x) s_light[j] = lights[j];
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // the lanes of this warp that hold a ray: they take the warp votes
+  const unsigned live = __ballot_sync(0xffffffffu, i < n_rays);
   if (i >= n_rays) return;
 
   V3 ro = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
@@ -168,22 +193,28 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int bounce = 0; bounce <= depth; ++bounce) {
     // --- closest hit: keep the winner's index, resolve it afterwards ---
+    // (strict < in ascending row order: the lowest index wins ties)
     float bt = INFINITY, bu = 0.0f, bv = 0.0f, bnd = 0.0f;
     int bi = -1;
     for (int k = 0; k < n_tris; ++k) {
-      const BwHit h = bw_isect(s_tri + kTriWidth * k, ro, rd);
-      if (h.t < bt) {
-        bt = h.t;
-        bu = h.u;
-        bv = h.v;
-        bnd = h.nd;
+      float nd, u, v;
+      bool plane;
+      const float t = bw_plane(s_rows[kRowQuads * k], ro, rd, nd, plane);
+      const bool closer = plane && t > 0.0f && t < bt;
+      const bool inside = bw_inside(s_rows[kRowQuads * k + 1], s_rows[kRowQuads * k + 2], ro,
+                                    rd, t, u, v);
+      if (closer && inside) {
+        bt = t;
+        bu = u;
+        bv = v;
+        bnd = nd;
         bi = k;
       }
     }
     V3 n = {0.0f, 0.0f, 0.0f};
     float mat = 0.0f;
     if (bi >= 0) {
-      const float* r = s_tri + kTriWidth * bi;
+      const float* r = tris + kTriWidth * bi;  // normals and material, once a bounce
       const float dsign = bnd <= 0.0f ? 1.0f : -1.0f;  // copysign(1, det), det = -nd
       mat = r[21];
       if (FLAT) {
@@ -253,13 +284,18 @@ __global__ void __launch_bounds__(kThreads)
     const V3 th = {p.x - so.x, p.y - so.y, p.z - so.z};
     const float slen = sqrtf(fmaxf(th.x * th.x + th.y * th.y + th.z * th.z, 1e-20f));
     const V3 sd = {th.x / slen, th.y / slen, th.z / slen};
-    float occ = 0.0f;
+    // any hit at t < slen decides; the warp stops once all its lanes have one
+    bool blocked = false;
     for (int k = 0; k < n_tris; ++k) {
-      if (bw_isect(s_tri + kTriWidth * k, so, sd).t < slen) {
-        occ = 1.0f;  // any hit decides; later rows cannot undo it
-        break;
-      }
+      float nd, u, v;
+      bool plane;
+      const float t = bw_plane(s_rows[kRowQuads * k], so, sd, nd, plane);
+      const bool nearer = !blocked && plane && t > 0.0f && t < slen;
+      blocked = blocked || (nearer && bw_inside(s_rows[kRowQuads * k + 1],
+                                                 s_rows[kRowQuads * k + 2], so, sd, t, u, v));
+      if (__all_sync(live, blocked)) break;
     }
+    const float occ = blocked ? 1.0f : 0.0f;
 
     // --- light radiance ---
     const V3 lv = {lpos.x - p.x, lpos.y - p.y, lpos.z - p.z};
@@ -379,8 +415,8 @@ cudaError_t launch(const float* tris, int n_tris, const float* mats, int n_mats,
                    const float* lights, int n_lights, int lcount, const float* o,
                    const float* d, const int64_t* state0, int n_rays, int depth, float* out,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kTriWidth) * n_tris +
-                                       static_cast<size_t>(kMatWidth) * n_mats +
+  const size_t smem = sizeof(float4) * kRowQuads * static_cast<size_t>(n_tris) +
+                      sizeof(float) * (static_cast<size_t>(kMatWidth) * n_mats +
                                        static_cast<size_t>(kLightWidth) * n_lights);
   auto kernel = ref_megakernel<FLAT, NO_METAL>;
   if (smem > 48 * 1024) {

@@ -22,16 +22,22 @@
 // memory that all 32 lanes of a warp take in one go. A and B take any row
 // count, as the JAX kernels do: they stage the rows in tiles of kTileRows
 // (48 KB), every thread of the block running every tile's load and both
-// barriers. B leaves its loop at the first occluder, which does not change
-// its answer, and the block stops loading tiles once all its rays are
-// done. Kernel 4 copies all its rows at once: it takes at most 1024, as
-// the JAX package routes it.
+// barriers. Kernel 4 copies all its rows at once: it takes at most 1024,
+// as the JAX package routes it.
+//
+// B, redesigned for this card: any hit is order-free, so a ray may stop
+// at its first occluder and skip what cannot make a hit. Its test
+// (mt_front, mt_back) computes the second half of Möller-Trumbore only
+// where the determinant and u pass, its rows are read as float4, and a
+// warp leaves the row loop once all its lanes are done, the block the
+// tile loop once all its warps are. (The whole test per row with each
+// lane leaving on its own measured 16% slower, PERF.md.)
 //
 // Floating point: built with --fmad=false and no fast math (see
 // ops/kernels/cuda_lib.py), with explicit fmaf exactly where the plain
-// version (ops/intersect.py) fuses (moller_trumbore.cuh); each operation
-// then rounds as there, so t is bit-identical to it and tri equal,
-// coplanar ties included.
+// version (ops/intersect.py) fuses (moller_trumbore.cuh, and B's own
+// test in the same operations); each operation then rounds as there, so
+// t is bit-identical to it and tri equal, coplanar ties included.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,6 +57,7 @@ using strolle::resolve_surface;
 constexpr int kRowWidth = 12;
 constexpr int kGeomWidth = 28;
 constexpr int kThreads = 256;
+constexpr unsigned kFullWarp = 0xffffffffu;  // kThreads is a multiple of 32
 // Rows of A's and B's shared-memory tile: 48 KB of [*, 12] rows.
 constexpr int kTileRows = 1024;
 
@@ -98,12 +105,54 @@ __global__ void __launch_bounds__(kThreads)
   v_out[i] = bv;
 }
 
+// Kernel B's test of one row against one ray, in moller_trumbore()'s
+// operations and order (so each value is bit-identical to its), in two
+// parts: mt_front computes the determinant and u, mt_back the rest, and
+// a lane runs mt_back only where mt_front passes (a branch that a warp
+// skips when none of its lanes passes). The row is three float4 of
+// shared memory, (v0, e1.x), (e1.y, e1.z, e2.x, e2.y), (e2.z, pad).
+struct MtFront {
+  float px, py, pz, inv_det, u, tx, ty, tz;
+  bool pass;  // |det| >= eps and 0 <= u <= 1
+};
+
+__device__ __forceinline__ MtFront mt_front(float4 a, float4 b, float4 c, float ox, float oy,
+                                            float oz, float dx, float dy, float dz) {
+  MtFront f;
+  // pvec = d x e2
+  f.px = fmaf(dy, c.x, -(dz * b.w));
+  f.py = fmaf(dz, b.z, -(dx * c.x));
+  f.pz = fmaf(dx, b.w, -(dy * b.z));
+  const float det = fmaf(b.y, f.pz, fmaf(b.x, f.py, a.w * f.px));
+  f.inv_det = fabsf(det) < strolle::kEps ? 0.0f : 1.0f / (det == 0.0f ? 1.0f : det);
+  f.tx = ox - a.x, f.ty = oy - a.y, f.tz = oz - a.z;
+  f.u = fmaf(f.tz, f.pz, fmaf(f.ty, f.py, f.tx * f.px)) * f.inv_det;
+  f.pass = fabsf(det) >= strolle::kEps && f.u >= 0.0f && f.u <= 1.0f;
+  return f;
+}
+
+// True where the ray hits the row at t < tm, given mt_front's pass.
+__device__ __forceinline__ bool mt_back(const MtFront& f, float4 a, float4 b, float4 c,
+                                        float dx, float dy, float dz, float tm) {
+  // qvec = tvec x e1
+  const float qx = fmaf(f.ty, b.y, -(f.tz * b.x));
+  const float qy = fmaf(f.tz, a.w, -(f.tx * b.y));
+  const float qz = fmaf(f.tx, b.x, -(f.ty * a.w));
+  const float v = fmaf(dz, qz, fmaf(dy, qy, dx * qx)) * f.inv_det;
+  const float t = fmaf(c.x, qz, fmaf(b.w, qy, b.z * qx)) * f.inv_det;
+  return v >= 0.0f && f.u + v <= 1.0f && t > 0.0f && t < tm;
+}
+
+// Any hit is order-free: a ray is occluded if any row is hit at
+// t < t_max. A warp leaves a tile's row loop once every lane has an
+// occluder (a lane without a ray counts as done), and the block leaves
+// the tile loop once all its warps have.
 __global__ void __launch_bounds__(kThreads)
     anyhit_brute_kernel(const float* __restrict__ rows, int n_rows,
                         const float* __restrict__ o, const float* __restrict__ d,
                         const float* __restrict__ t_max, int n_rays,
                         bool* __restrict__ occluded) {
-  extern __shared__ float s_rows[];
+  extern __shared__ float4 s_quads[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = i < n_rays;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f, tm = 0.0f;
@@ -112,22 +161,23 @@ __global__ void __launch_bounds__(kThreads)
     dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
     tm = t_max[i];
   }
-  bool occ = false;
+  bool done = !valid;
   for (int first = 0; first < n_rows; first += kTileRows) {
     // a barrier (the previous tile's tests are done) that also tells
     // whether any ray of the block still looks for an occluder
-    if (!__syncthreads_or(valid && !occ)) break;
+    if (!__syncthreads_or(!done)) break;
     const int count = min(kTileRows, n_rows - first);
-    load_rows(s_rows, rows + static_cast<size_t>(first) * kRowWidth, count * kRowWidth);
-    if (!valid || occ) continue;
+    load_rows(reinterpret_cast<float*>(s_quads), rows + static_cast<size_t>(first) * kRowWidth,
+              count * kRowWidth);
+    if (__all_sync(kFullWarp, done)) continue;
     for (int k = 0; k < count; ++k) {
-      if (moller_trumbore(s_rows + k * kRowWidth, ox, oy, oz, dx, dy, dz).t < tm) {
-        occ = true;
-        break;
-      }
+      const float4 a = s_quads[3 * k], b = s_quads[3 * k + 1], c = s_quads[3 * k + 2];
+      const MtFront f = mt_front(a, b, c, ox, oy, oz, dx, dy, dz);
+      done = done || (f.pass && mt_back(f, a, b, c, dx, dy, dz, tm));
+      if (__all_sync(kFullWarp, done)) break;
     }
   }
-  if (valid) occluded[i] = occ;
+  if (valid) occluded[i] = done;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -16,7 +16,7 @@ import torch
 
 from .. import rng
 from ..brdf import MIN_ROUGHNESS, ggx_distribution
-from ..intersect import F32_EPS, fma_cross
+from ..intersect import F32_EPS, fma, fma_cross
 from ..lights import RANGE_UNLIMITED, pack_lights
 from ..math import dot
 from ..math import saturate as _saturate
@@ -94,26 +94,48 @@ def _normalize3(x, y, z):
     return x * inv, y * inv, z * inv
 
 
+def _bw_plane(c, ox, oy, oz, dx, dy, dz):
+    """The plane part of the test (the kernel's ``bw_plane``) on row
+    columns ``c``: (t, nd, plane), plane False where |nd| < eps."""
+    nd = fma(c[2], dz, fma(c[0], dx, c[1] * dy))
+    no = fma(c[2], oz, fma(c[0], ox, c[1] * oy))
+    plane = ~(torch.abs(nd) < F32_EPS)
+    return (c[3] - no) / torch.where(plane, nd, 1.0), nd, plane
+
+
 def _bw_block(rows, ox, oy, oz, dx, dy, dz):
     """Rays (each component [R, 1]) against rows [C, 24] -> (t, u, v, nd)
-    [R, C], t = +inf on a miss."""
+    [R, C], t = +inf on a miss.
+
+    The multiply-adds fuse as XLA:CPU compiles the JAX kernel's
+    ``_bw_isect`` (the row is n d0 T1 d1 T2 d2):
+    nd = fma(n.z, d.z, fma(n.x, d.x, n.y * d.y)), no likewise with o,
+    p = fma(t, d, o), u = fma(T1.z, p.z, fma(T1.x, p.x, T1.y * p.y)) + d1,
+    v likewise with T2 and d2; the kernel uses ``fmaf`` at the same
+    places."""
     c = [rows[:, k] for k in range(12)]
-    nd = c[0] * dx + c[1] * dy + c[2] * dz
-    no = c[0] * ox + c[1] * oy + c[2] * oz
-    miss_plane = torch.abs(nd) < F32_EPS
-    t = (c[3] - no) / torch.where(miss_plane, 1.0, nd)
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
-    u = c[4] * px + c[5] * py + c[6] * pz + c[7]
-    v = c[8] * px + c[9] * py + c[10] * pz + c[11]
-    hit = ~miss_plane & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    t, nd, plane = _bw_plane(c, ox, oy, oz, dx, dy, dz)
+    px = fma(t, dx, ox)
+    py = fma(t, dy, oy)
+    pz = fma(t, dz, oz)
+    u = fma(c[6], pz, fma(c[4], px, c[5] * py)) + c[7]
+    v = fma(c[10], pz, fma(c[8], px, c[9] * py)) + c[11]
+    hit = plane & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
     return torch.where(hit, t, math.inf), u, v, nd
 
 
-def _bw_closest(rows, ox, oy, oz, dx, dy, dz):
+def _bw_ahead(rows, rays):
+    """(t, the plane lies ahead: plane and t > 0) [R, C] of the rays
+    against rows, for the work counts."""
+    t, _, plane = _bw_plane([rows[:, k] for k in range(4)], *rays)
+    return t, plane & (t > 0.0)
+
+
+def _bw_closest(rows, ox, oy, oz, dx, dy, dz, counts=None):
     """Closest Baldwin-Weber hit, lowest index on ties; returns
-    (t, index (-1 on miss), u, v, nd) over [R]."""
+    (t, index (-1 on miss), u, v, nd) over [R]. ``counts`` receives
+    ``closest_inside``: the tests whose plane lies ahead nearer than the
+    best hit so far, the only ones that need u and v."""
     r = ox.shape[0]
     dev = ox.device
     bt = torch.full((r,), math.inf, dtype=torch.float32, device=dev)
@@ -124,6 +146,12 @@ def _bw_closest(rows, ox, oy, oz, dx, dy, dz):
     rays = [x[:, None] for x in (ox, oy, oz, dx, dy, dz)]
     for c0 in range(0, rows.shape[0], PLAIN_CHUNK):
         t, u, v, nd = _bw_block(rows[c0 : c0 + PLAIN_CHUNK], *rays)
+        if counts is not None:
+            # the best hit before each row: the rows before it in this chunk, then bt
+            best = torch.cummin(t, dim=-1).values
+            best = torch.cat([bt[:, None], torch.minimum(best[:, :-1], bt[:, None])], dim=-1)
+            t_plane, ahead = _bw_ahead(rows[c0 : c0 + PLAIN_CHUNK], rays)
+            counts["closest_inside"] += int((ahead & (t_plane < best)).sum())
         j = torch.argmin(t, dim=-1, keepdim=True)
         tj = t.gather(-1, j)[:, 0]
         better = tj < bt
@@ -136,14 +164,22 @@ def _bw_closest(rows, ox, oy, oz, dx, dy, dz):
 
 
 def _bw_occluded(rows, ox, oy, oz, dx, dy, dz, t_max, counts=None):
+    """True where any row is hit at t < t_max. ``counts`` receives the
+    kernel's work: ``anyhit_tests``, the rows up to and including a
+    ray's first occluder, and ``anyhit_inside``, those of them whose
+    plane lies ahead before t_max."""
     occ = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
     rays = [x[:, None] for x in (ox, oy, oz, dx, dy, dz)]
     for c0 in range(0, rows.shape[0], PLAIN_CHUNK):
-        hits = _bw_block(rows[c0 : c0 + PLAIN_CHUNK], *rays)[0] < t_max[:, None]
+        block = rows[c0 : c0 + PLAIN_CHUNK]
+        hits = _bw_block(block, *rays)[0] < t_max[:, None]
         if counts is not None:
-            # rows the kernel tests: up to and including the first occluder
             first = torch.where(hits.any(-1), hits.int().argmax(-1) + 1, hits.shape[1])
-            counts["anyhit_tests"] += int(torch.where(occ, 0, first).sum())
+            first = torch.where(occ, 0, first)
+            counts["anyhit_tests"] += int(first.sum())
+            t_plane, ahead = _bw_ahead(block, rays)
+            tested = torch.arange(block.shape[0], device=ox.device) < first[:, None]
+            counts["anyhit_inside"] += int((tested & ahead & (t_plane < t_max[:, None])).sum())
         occ = occ | hits.any(-1)
     return occ
 
@@ -190,8 +226,10 @@ def trace_sample_megakernel_plain(
     Returns radiance over o's batch shape + (3,).
 
     ``counts``, when given, receives the work the kernel does on these
-    inputs: ``ray_bounces``, ``closest_tests`` and ``anyhit_tests``
-    (ray-triangle tests; the any-hit loop stops at the first occluder).
+    inputs, per ray (not per warp): ``ray_bounces``, ``closest_tests``
+    and ``anyhit_tests`` (ray-triangle tests; the any-hit loop stops at
+    the first occluder), and ``closest_inside`` and ``anyhit_inside``,
+    the tests among them that need u and v.
     """
     batch = o.shape[:-1]
     of = o.reshape(-1, 3)
@@ -208,13 +246,14 @@ def trace_sample_megakernel_plain(
     has_lights = 1.0 if lcount > 0 else 0.0
 
     if counts is not None:
-        for k in ("ray_bounces", "closest_tests", "anyhit_tests"):
+        for k in ("ray_bounces", "closest_tests", "closest_inside", "anyhit_tests",
+                  "anyhit_inside"):
             counts.setdefault(k, 0)
     for bounce in range(depth + 1):
         if counts is not None:
             counts["ray_bounces"] += ox.shape[0]
             counts["closest_tests"] += ox.shape[0] * tri_rows.shape[0]
-        bt, bi, bu, bv, bnd = _bw_closest(tri_rows, ox, oy, oz, dx, dy, dz)
+        bt, bi, bu, bv, bnd = _bw_closest(tri_rows, ox, oy, oz, dx, dy, dz, counts)
         hit = bi >= 0
         row = _take_rows(tri_rows, bi)
         dsign = torch.where(hit, torch.where(bnd <= 0.0, 1.0, -1.0), 0.0)

@@ -5,10 +5,13 @@ interpret mode: default Cornell (flat, no metal), the metallic tall box
 spot light and a finite-range light."""
 
 import dataclasses
+import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import torch_port_arrays  # noqa: F401  (one torch thread per test process)
 
 from strolle_tpu.camera import pixel_rays as jax_pixel_rays
@@ -26,6 +29,8 @@ from strolle_tpu_torch.camera import pixel_rays, screen_grid
 from strolle_tpu_torch.models.reference import _sample_pixels_megakernel as port_megakernel
 from strolle_tpu_torch.ops import rng
 from strolle_tpu_torch.ops.kernels import ref_kernel
+from strolle_tpu_torch.scene.cornell import cornell_box
+from torch_port_arrays import tt
 
 W, H = 32, 24
 
@@ -103,6 +108,40 @@ def test_packers_match_jax():
             want = np.asarray(jax_fn(getattr(jscene, arg)))
             got = port_fn(getattr(scene, arg)).numpy()
             np.testing.assert_array_equal(got, want, err_msg=arg)
+
+
+def test_bw_test_rounds_as_jitted_jax():
+    """The plain version's Baldwin-Weber test against the JAX kernel's
+    ``_bw_isect`` jitted on the CPU, where XLA fuses its multiply-adds:
+    Cornell's rows and seeded random triangles (packed by the port's
+    packer, which matches the JAX package's bit for bit) against 100,000
+    seeded rays from inside the box, all pairs."""
+    rs = np.random.RandomState(5)
+    soup = rs.uniform(-1.0, 1.0, (16, 3, 3)).astype(np.float32) + np.float32([0.0, 1.0, 0.0])
+    geom = types.SimpleNamespace(positions=tt(soup), normals=tt(np.zeros_like(soup)),
+                                 material_id=torch.zeros(16, dtype=torch.int32))
+    rows = torch.cat([ref_kernel.pack_geometry_bw(g)
+                      for g in (cornell_box(device="cpu").geometry, geom)]).numpy()
+    n = 100_000
+    o = rs.uniform([-1.0, 0.0, -1.0], [1.0, 2.0, 1.0], (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = [x[:, None] for x in (*o.T, *d.T)]  # six [R, 1] components
+
+    # rows as [12, 1, C] columns: every output [R, C]
+    want = jax.jit(jax_ref_kernel._bw_isect)(rows[:, :12].T[:, None, :], *rays)
+    got = ref_kernel._bw_block(tt(rows), *map(tt, rays))
+    # t, u, v, nd and the hit mask bit for bit; allow 1e-5 of the pairs
+    # for the float64 emulation of fma (double rounding lands within
+    # 2^-29 of a float32 midpoint)
+    bits = [np.asarray(x).view(np.int32) for x in want]
+    differ = np.zeros(bits[0].shape, bool)
+    for w, g in zip(bits, got):  # t, u, v, nd
+        differ |= g.numpy().view(np.int32) != w
+    hit = np.isfinite(np.asarray(want[0]))
+    differ |= torch.isfinite(got[0]).numpy() != hit
+    assert differ.mean() <= 1e-5, differ.mean()
+    assert 0.01 < hit.mean() < 0.5, hit.mean()
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
