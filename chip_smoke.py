@@ -3,12 +3,14 @@
 Run from the root of the repository:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   strolle_tpu_torch/csrc with one nvcc command, and prints kernel B's
-   and kernel C's instructions per ray-triangle test as compiled (where
+   strolle_tpu_torch/csrc with one nvcc command, and prints kernels A's,
+   B's, 4's and C's instructions per ray-triangle test as compiled (where
    the toolkit has cuobjdump).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: kernels A and B (brute closest hit / any hit)
-   on 800x608 Cornell primary rays and on seeded random rays, kernel C
+   on 800x608 Cornell primary rays and on seeded random rays, and A and
+   4 on the same rays against Cornell's rows twice over (every hit a tie
+   that the lower copy must win: tri equal on every ray), kernel C
    (the reference-mode megakernel) in all four (flat, no_metal)
    variants, kernel 4 (the fused surface trace) on primary and random
    rays of Cornell and of smooth-normal Cornell.
@@ -65,9 +67,11 @@ Run from the root of the repository:  python3 chip_smoke.py
    needs_di=False, denoise=False) with kernel 7's launches following
    them; renders the dungeon's BVH heatmap. Then kernels A and B above
    1024 rows: held against their plain versions over the 8,393 rows of the
-   dungeon without its BVH, on the 65,536 random rays, and driven by one
-   reference sample of it at 200x152 (counted: A and B once a bounce),
-   whose image must agree with the BVH route's.
+   dungeon without its BVH, on the 65,536 random rays (A also on those
+   rows with copies of 256 winning rows in another slice of their
+   1024-row tile and in a later tile: tri equal on every ray), and
+   driven by one reference sample of it at 200x152 (counted: A and B
+   once a bounce), whose image must agree with the BVH route's.
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler; kernels A and B also
@@ -230,27 +234,36 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
 
 
 #: The kernels whose instructions per ray-triangle test sass_per_test
-#: counts: B, and C in its default (flat, no_metal) variant.
-SASS_KERNELS = {"B": "anyhit_brute_kernel", "C": "ref_megakernelILb1ELb1E"}
+#: counts: A, B, 4, and C in its default (flat, no_metal) variant.
+SASS_KERNELS = {"A": "closest_brute_kernel", "B": "anyhit_brute_kernel",
+                "4": "surface_closest_kernel", "C": "ref_megakernelILb1ELb1E"}
 
 
 def sass_per_test(lib) -> dict | None:
-    """Instructions per ray-triangle test of kernels B and C as compiled,
-    from ``cuobjdump -sass`` of the built library: for each innermost loop
-    over rows (a backward branch whose body reads each row it tests with
-    three shared-memory loads), the instructions of its body (all paths,
-    the division's rare slow path included) over the rows a pass tests,
-    and those up to a warp's any-vote and its branch (what a row costs
-    where the vote skips the rest). None where the toolkit has no
-    cuobjdump."""
+    """Instructions per ray-triangle test of kernels A, B, 4 and C as
+    compiled, from ``cuobjdump -sass`` of the built library (``sass_loops``).
+    None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                         timeout=300, check=True).stdout
+    return sass_loops(subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                                     timeout=300, check=True).stdout)
+
+
+def sass_loops(sass: str) -> dict:
+    """For each kernel of SASS_KERNELS, each innermost loop over rows in
+    ``sass`` (a backward branch whose body reads each row it tests with
+    three shared-memory loads): the instructions of its body (all paths,
+    the division's rare slow path included) over the rows a pass tests;
+    those up to a warp's any-vote and its branch (what a row costs where
+    the vote skips the rest); for the first row of the body, the
+    instructions from its first load to each conditional branch that
+    leaves the row (the branch included: what a row costs where a warp
+    takes that exit) and to the row's end; and the shared-memory loads by
+    kind."""
     fns: dict[str, list] = {}
     cur = None
-    for line in out.splitlines():
+    for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = fns.setdefault(m.group(1), [])
@@ -258,27 +271,37 @@ def sass_per_test(lib) -> dict | None:
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
         if m and cur is not None:
             cur.append((int(m.group(1), 16), m.group(2).strip()))
+    branch = re.compile(r"(@!?U?P\w+\s+)?BRA\S*\s+(?:!?U?P\w+,\s*)?`?\(?0x([0-9a-f]+)")
+    load = re.compile(r"(?:@!?U?P\w+\s+)?(LDS(?:\.\w+)*)\b")
     result = {}
     for key, pattern in SASS_KERNELS.items():
         ins = next(v for name, v in fns.items() if pattern in name)
-        spans = []
-        for addr, text in ins:
-            m = re.search(r"\bBRA\S*\s+(?:!?U?P\w+,\s*)?`?\(?0x([0-9a-f]+)", text)
-            if m and int(m.group(1), 16) < addr:
-                spans.append((int(m.group(1), 16), addr))
+        spans = [(int(m.group(2), 16), addr) for addr, text in ins
+                 if (m := branch.search(text)) and int(m.group(2), 16) < addr]
         loops = []
         for lo, hi in spans:
             if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
                 continue  # not innermost
-            body = [t for a, t in ins if lo <= a <= hi]
-            loads = sum(1 for t in body if re.match(r"(@!?U?P\w+\s+)?LDS\b", t))
-            if loads == 0 or loads % 3:
+            body = [(a, t) for a, t in ins if lo <= a <= hi]
+            lds = [(j, m.group(1)) for j, (_, t) in enumerate(body) if (m := load.match(t))]
+            if not lds or len(lds) % 3:
                 continue
-            rows = loads // 3
-            votes = [j for j, t in enumerate(body) if "VOTE.ANY" in t]
+            rows = len(lds) // 3
+            votes = [j for j, (_, t) in enumerate(body) if "VOTE.ANY" in t]
+            # the first row: from its first load to the next row's (or the
+            # loop's end); an exit jumps to within 4 instructions of that
+            first = lds[0][0]
+            end = lds[3][0] if rows > 1 else len(body) - 1
+            end_addr = body[end][0]
+            exits = [j - first + 1 for j in range(first, end)
+                     if (m := branch.match(body[j][1])) and m.group(1)
+                     and end_addr - 0x40 <= int(m.group(2), 16) <= end_addr]
             loops.append({"instructions": len(body), "rows": rows,
                           "per_test": len(body) / rows,
-                          "before_vote": (votes[0] + 2) / rows if votes else None})
+                          "before_vote": (votes[0] + 2) / rows if votes else None,
+                          "row_exits": exits, "row_end": end - first,
+                          "loads": {k: [n for _, n in lds].count(k)
+                                    for k in sorted({n for _, n in lds})}})
         result[key] = loops
     return result
 
@@ -342,6 +365,21 @@ def anyhit_flops(rows, o, d, t_max, chunk: int = 256) -> int:
     return tests * FLOPS_MT_FRONT + fronts * (FLOPS_MT - FLOPS_MT_FRONT)
 
 
+def closest_flops(rows, o, d, chunk: int = 256) -> int:
+    """Operations kernels A and 4 need, ray by ray: every row through u
+    (FLOPS_MT_FRONT), and the rest of the test where |det| >= eps and
+    0 <= u <= 1 (a closest hit tests every row)."""
+    from strolle_tpu_torch.ops.intersect import F32_EPS
+    from strolle_tpu_torch.ops.kernels.trace_kernels import _row_isect
+
+    o, d = o.reshape(-1, 1, 3), d.reshape(-1, 1, 3)
+    fronts = 0
+    for c0 in range(0, rows.shape[0], chunk):
+        _, u, _, det = _row_isect(rows[c0:c0 + chunk], o, d)
+        fronts += int(((det.abs() >= F32_EPS) & (u >= 0.0) & (u <= 1.0)).sum())
+    return o.shape[0] * rows.shape[0] * FLOPS_MT_FRONT + fronts * (FLOPS_MT - FLOPS_MT_FRONT)
+
+
 def bounce0_shadow_rays(scene, cam, seed):
     """The staged loop's first-bounce shadow rays (kernel B's input)."""
     from strolle_tpu_torch.camera import pixel_rays, screen_grid
@@ -391,11 +429,70 @@ def hold_brute(rows, o, d, t_max, name: str) -> tuple[float, float]:
     return e, (occ != pocc).float().max().item()
 
 
+def hold_ties(rows, o, d, name: str, copied, geom_rows=None) -> int:
+    """Kernel A (and kernel 4 over ``geom_rows``, the same triangles as
+    [T, 28] rows) against the plain version on a tie set, rows that hold
+    copies of rows: tri equal on every ray (the lowest copy must win, as
+    one ascending pass with strict < picks), t/u/v as hold_brute holds
+    them. ``copied`` flags the rows that have a copy; returns the rays
+    whose winner is one of them."""
+    from strolle_tpu_torch.ops.kernels import trace_kernels as tk
+
+    t, tri, u, v = tk.trace_closest_brute(rows, o, d)
+    want = dict(zip(("t", "tri", "u", "v"), tk.trace_closest_brute_plain(rows, o, d)))
+    got = [("A", {"t": t, "tri": tri, "u": u, "v": v}, want)]
+    if geom_rows is not None:
+        got.append(("4", tk.trace_surface(geom_rows, o, d),
+                    tk.trace_surface_plain(geom_rows, o, d)))
+    torch.cuda.synchronize()
+    for k, g, w in got:
+        mism = int((g["tri"] != w["tri"]).sum())
+        check(mism == 0, f"kernel {k} (ties, {name}): tri differs on {mism} rays")
+        hit = w["tri"] >= 0
+        fields = ("t", "u", "v") if k == "A" else ("t", "u", "v", "normal", "uv")
+        e = max((g[f] - w[f])[hit].abs().max().item() for f in fields)
+        check(e <= 1e-5, f"kernel {k} (ties, {name}): fields differ by {e}")
+        check(k == "A" or torch.equal(g["mat_id"], w["mat_id"]),
+              f"kernel 4 (ties, {name}): material ids differ")
+    hit = want["tri"] >= 0
+    ties = int(copied[want["tri"][hit].long()].sum())
+    check(ties > 0, f"ties ({name}): no winner has a copy")
+    print(f"kernel{'s A and 4' if geom_rows is not None else ' A'} vs plain on ties ({name}, "
+          f"{o.numel() // 3} rays, {rows.shape[0]} rows): tri mismatch 0, {ties} winners with "
+          f"a copy", flush=True)
+    return ties
+
+
+def doubled(rows):
+    """Rows twice over: every hit ties with its copy, the lower must win."""
+    return torch.cat([rows, rows]).contiguous()
+
+
+def tie_rows(rows, winners, count: int = 256):
+    """``rows`` with copies of ``count`` of the rows that ``winners`` holds:
+    each in another slice of its own 1024-row tile of kernel A (the row
+    512 further on, wrapped within the tile, overwritten) and in a later
+    tile (appended). Returns the rows and the flags of the rows that have
+    a copy."""
+    w = torch.unique(winners[winners >= 0])
+    w = w[torch.linspace(0, w.numel() - 1, min(count, w.numel()), device=w.device).long()]
+    other = (w // 1024) * 1024 + (w % 1024 + 512) % 1024
+    keep = (other < rows.shape[0]) & ~torch.isin(other, w)
+    out = rows.clone()
+    out[other[keep]] = rows[w[keep]]
+    out = torch.cat([out, rows[w]]).contiguous()
+    copied = torch.zeros(out.shape[0], dtype=torch.bool, device=rows.device)
+    copied[w] = True
+    copied[other[keep]] = True
+    copied[rows.shape[0]:] = True
+    return out, copied
+
+
 def compare_trace_kernels(scene, cam, device) -> dict:
     """Kernels A and B against their plain versions on Cornell's primary
     rays and on seeded random rays; returns each one's max abs error."""
     from strolle_tpu_torch.camera import pixel_rays, screen_grid
-    from strolle_tpu_torch.ops.trace import packed_tri_rows
+    from strolle_tpu_torch.ops.trace import packed_geom_rows, packed_tri_rows
 
     rows = packed_tri_rows(scene)
     po, pd = pixel_rays(cam, screen_grid(cam))
@@ -407,6 +504,10 @@ def compare_trace_kernels(scene, cam, device) -> dict:
     }.items():
         ea, eb = hold_brute(rows, o, d, t_max, name)
         err["A"], err["B"] = max(err["A"], ea), max(err["B"], eb)
+        twice = doubled(rows)
+        hold_ties(twice, o, d, f"Cornell's rows twice over, {name}",
+                  torch.ones(twice.shape[0], dtype=torch.bool, device=device),
+                  doubled(packed_geom_rows(scene)))
     return err
 
 
@@ -1528,7 +1629,7 @@ def main() -> int:
             print("ptxas:", line.strip())
     print(f"build: {build_s:.1f} s ({len(cuda_lib.sources())} sources, one nvcc)", flush=True)
     sass = sass_per_test(cuda_lib.build())
-    print(f"SASS instructions per ray-triangle test (kernel B; kernel C flat, no metal: "
+    print(f"SASS instructions per ray-triangle test (kernels A, B, 4; kernel C flat, no metal: "
           f"closest hit, shadow): {sass}", flush=True)
     t0 = time.perf_counter()
     native.library()
@@ -1748,6 +1849,10 @@ def main() -> int:
     fo, fd, ft = ssets["random"]
     ea, eb = hold_brute(flat_rows, fo, fd, ft, "dungeon without a BVH, random")
     err["A"], err["B"] = max(err["A"], ea), max(err["B"], eb)
+    winners = tk.trace_closest_brute_plain(flat_rows, fo, fd)[1]
+    copies, copied = tie_rows(flat_rows, winners)
+    hold_ties(copies, fo, fd, "the dungeon's rows, copies in other slices and a later tile",
+              copied)
     flat_launches = drive_flat_dungeon(flat, dg, dluts, device)
 
     # --- 6. timings -----------------------------------------------------
@@ -1787,8 +1892,7 @@ def main() -> int:
     po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
     ms_a = time_ms(lambda: tk.trace_closest_brute(rows, po, pd))
     plain_a = time_ms(lambda: tk.trace_closest_brute_plain(rows, po, pd), warmup=1, iters=5)
-    bound_a, by_a = bound(r * rows.shape[0] * FLOPS_MT,
-                          4 * rows.numel() + r * 24 + r * 16)
+    bound_a, by_a = bound(closest_flops(rows, po, pd), 4 * rows.numel() + r * 24 + r * 16)
     ms_b = time_ms(lambda: tk.trace_anyhit_brute(rows, so, sd, slen))
     plain_b = time_ms(lambda: tk.trace_anyhit_brute_plain(rows, so, sd, slen),
                       warmup=1, iters=5)
@@ -1799,7 +1903,7 @@ def main() -> int:
     ms_a_flat = time_ms(lambda: tk.trace_closest_brute(flat_rows, fo, fd))
     plain_a_flat = time_ms(lambda: tk.trace_closest_brute_plain(flat_rows, fo, fd), warmup=1,
                            iters=3)
-    bound_a_flat = bound(fn * flat_rows.shape[0] * FLOPS_MT,
+    bound_a_flat = bound(closest_flops(flat_rows, fo, fd),
                          4 * flat_rows.numel() + fn * 24 + fn * 16)
     ms_b_flat = time_ms(lambda: tk.trace_anyhit_brute(flat_rows, fo, fd, ft))
     plain_b_flat = time_ms(lambda: tk.trace_anyhit_brute_plain(flat_rows, fo, fd, ft),
@@ -1819,7 +1923,7 @@ def main() -> int:
     plain_4 = time_ms(lambda: tk.trace_surface_plain(grows, po, pd), warmup=1, iters=5)
     hits_4 = int((tk.trace_surface_plain(grows, po, pd)["tri"] >= 0).sum())
     # out: t, u, v, tri, normal [3], uv [2], mat_id = 40 B per ray
-    bound_4, by_4 = bound(r * grows.shape[0] * FLOPS_MT + hits_4 * FLOPS_RESOLVE,
+    bound_4, by_4 = bound(closest_flops(grows, po, pd) + hits_4 * FLOPS_RESOLVE,
                           4 * grows.numel() + r * 24 + r * 40)
 
     # the realtime frame: whole cycles, per stage, under the profiler
@@ -1985,6 +2089,7 @@ def main() -> int:
             "launches": launches["trace_closest_brute"] + flat_launches["trace_closest_brute"],
             "max_abs_err": err["A"], "ms": ms_a, "plain_ms": plain_a,
             "bound_ms": bound_a, "bound_by": by_a, "library_ms": None,
+            "over_1024_rows": {"rows": brute_flat["rows"], "rays": fn, **brute_flat["A"]},
         },
         {
             "name": "trace_anyhit_brute", "route": "cuda",

@@ -140,11 +140,14 @@ def _check_inputs(name: str, rows: torch.Tensor, o: torch.Tensor, d: torch.Tenso
 def trace_closest_brute(rows, o, d):
     """Closest hit of rays o/d [..., 3] against packed rows [T, 12], any T.
     Returns (t, tri, u, v) over o's batch shape. CPU tensors run the
-    plain version; CUDA tensors launch kernel A."""
+    plain version; CUDA tensors launch kernel A, which copies the rows
+    as float4 (they must start on a 16-byte boundary)."""
     _check_inputs("trace_closest_brute", rows, o, d)
     if rows.device.type == "cpu":
         return trace_closest_brute_plain(rows, o, d)
     cuda_lib.check_tensors("trace_closest_brute", rows, o, d)
+    if rows.data_ptr() % 16:
+        raise ValueError("trace_closest_brute: rows must start on a 16-byte boundary")
     lib = cuda_lib.library()
     batch = o.shape[:-1]
     n = o.numel() // 3

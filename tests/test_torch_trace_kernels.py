@@ -77,16 +77,78 @@ def test_closest_brute_matches_jax_and_pallas(scenes):
     torch.testing.assert_close(plain.t, t, rtol=0, atol=0)
 
 
-def test_closest_brute_picks_lowest_index_on_ties():
-    # two copies of one triangle: the first must win, as with strict <
+def _tie_rows():
+    """~2,100 rows (zero rows that no ray hits) with copies of one
+    triangle across plain chunk and 1024-row boundaries (rows 1023, 1024,
+    1151, 1152, 2047, 2048, 2099) and, at row 3, the same triangle
+    farther along the rays; the first copy must win. Returns [T, 12] rows,
+    the [T, 28] rows of the same triangles, and the winning row."""
+    tri = np.array([[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
+    pos = np.zeros((2100, 3, 3), np.float32)
+    pos[3] = tri + np.array([0.0, 0.0, -0.5], np.float32)
+    copies = [1023, 1024, 1151, 1152, 2047, 2048, 2099]
+    pos[copies] = tri
+    rows = tk.pack_triangles(torch.as_tensor(pos))
+    rs = np.random.RandomState(5)
+    attrs = rs.uniform(-1.0, 1.0, (2100, 15)).astype(np.float32)
+    attrs[:, 15 - 4] = rs.randint(0, 4, 2100)  # the material id column
+    grows = torch.cat([rows[:, :9], torch.as_tensor(attrs), torch.zeros(2100, 4)], dim=1)
+    return rows, grows, copies[0]
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 128, 1024])
+@pytest.mark.parametrize("kernel", ["A", "4"])
+@torch.inference_mode()  # the plain version at chunk 1 makes ~40 small ops a row
+def test_closest_brute_picks_lowest_index_on_ties(kernel, chunk):
+    # copies of one triangle: the first must win, as with strict < in
+    # ascending order, whatever the plain version's chunk
+    o = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.2, -0.3, 2.0], [0.1, 0.1, -3.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 0.0, 1.0]])
     tri = torch.tensor([[-1.0, -1.0, 0.0], [1.0, -1.0, 0.0], [0.0, 1.0, 0.0]])
-    rows = tk.pack_triangles(torch.stack([tri, tri, tri]))
-    o = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]])
-    d = torch.tensor([[0.0, 0.0, -1.0], [0.0, 0.0, 1.0]])
-    _, idx, _, _ = tk.trace_closest_brute(rows, o, d)
-    assert idx.tolist() == [0, 0]
-    _, idx, _, _ = tk.trace_closest_brute_plain(rows, o, d, chunk=1)
-    assert idx.tolist() == [0, 0]
+    three = tk.pack_triangles(torch.stack([tri, tri, tri]))
+    rows, grows, first = _tie_rows()
+    if kernel == "A":
+        assert tk.trace_closest_brute(three, o, d)[1].tolist() == [0, 0, 0, 0]
+        assert tk.trace_closest_brute_plain(three, o, d, chunk=chunk)[1].tolist() == [0, 0, 0, 0]
+        t, idx, u, v = tk.trace_closest_brute_plain(rows, o, d, chunk=chunk)
+        want = tk.trace_closest_brute(rows, o, d)
+    else:
+        g3 = torch.cat([three[:, :9], torch.ones(3, 19)], dim=1)
+        assert tk.trace_surface(g3, o, d)["tri"].tolist() == [0, 0, 0, 0]
+        assert tk.trace_surface_plain(g3, o, d, chunk=chunk)["tri"].tolist() == [0, 0, 0, 0]
+        out = tk.trace_surface_plain(grows, o, d, chunk=chunk)
+        t, idx, u, v = (out[k] for k in ("t", "tri", "u", "v"))
+        # (the wrapper takes at most MAX_TRIS rows: the default chunk)
+        want = tk.trace_surface_plain(grows, o, d)
+        for k in ("normal", "uv", "mat_id"):
+            torch.testing.assert_close(out[k], want[k], rtol=0, atol=0)
+        assert out["mat_id"].tolist() == [int(grows[first, 24])] * 4
+    # rays from +z meet the copies first (t 1, 2), rays from -z row 3 (t 0.5, 2.5)
+    assert idx.tolist() == [first, 3, first, 3]
+    torch.testing.assert_close(t, torch.tensor([1.0, 0.5, 2.0, 2.5]), rtol=0, atol=0)
+    for got, w in zip((t, idx, u, v), want if kernel == "A" else
+                      (want[k] for k in ("t", "tri", "u", "v"))):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
+
+
+def test_closest_brute_ties_match_pallas(scenes):
+    # Cornell's rows twice over: every hit ties with its copy, and the
+    # lower copy must win in the JAX kernel and in the port alike
+    jscene, scene = scenes
+    o, d = _rays(64, seed=4)
+    jrows = _jax_rows(jscene)
+    pt, ptri, pu, pv = trace_closest_brute_pallas(
+        jnp.concatenate([jrows, jrows]), jnp.asarray(o), jnp.asarray(d), interpret=True
+    )
+    rows = packed_tri_rows(scene)
+    t, tri, u, v = tk.trace_closest_brute(torch.cat([rows, rows]), torch.as_tensor(o),
+                                          torch.as_tensor(d))
+    assert (tri.numpy() == np.asarray(ptri)).all()
+    hit = tri.numpy() >= 0
+    assert 0.2 < hit.mean() < 1.0
+    assert (tri.numpy()[hit] < rows.shape[0]).all()
+    for got, want in ((t, pt), (u, pu), (v, pv)):
+        np.testing.assert_allclose(got.numpy()[hit], np.asarray(want)[hit], rtol=0, atol=1e-4)
 
 
 def test_anyhit_brute_matches_jax_and_pallas(scenes):
