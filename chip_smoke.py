@@ -4,8 +4,8 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    strolle_tpu_torch/csrc with one nvcc command, and prints kernels A's,
-   B's, 4's and C's instructions per ray-triangle test as compiled (where
-   the toolkit has cuobjdump).
+   B's, 4's, C's, 8's and 9's instructions per ray-triangle test as
+   compiled (where the toolkit has cuobjdump).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: kernels A and B (brute closest hit / any hit)
    on 800x608 Cornell primary rays and on seeded random rays, and A and
@@ -48,7 +48,13 @@ Run from the root of the repository:  python3 chip_smoke.py
    of frames 6-17 is within 15% of a 64-sample depth-1 sky reference.
    Then holds kernels 8-11 (the cluster and BVH kernels) against their
    plain versions on the same ray sets, with their test counts, and
-   kernel 10's triangles against the torch BVH traversal; drives both
+   kernel 10's triangles against the torch BVH traversal; kernels 8 and
+   9 also on their overflow path (list caps 0 and 4, as 5 and 6), with
+   the index-order walk's tests per ray printed beside the front-to-back
+   walk's (kernel 8 must test fewer triangles per primary front to
+   back), and on the dungeon's rows twice over (every hit a tie; tri
+   equal to the plain version's on every ray, and kernel 8's hits all on
+   the first copy); drives both
    modes again under BIG_SCENE_STRATEGY "cluster" (kernels 8 and 9 only)
    and "packet" (kernels 10 and 11 only), counted the same way, with the
    same realtime check and the share of primary triangles that differ
@@ -76,9 +82,10 @@ Run from the root of the repository:  python3 chip_smoke.py
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler; kernels A and B also
    over the BVH-less dungeon's rows, kernel 6 also on the sun and GI sets. A walking kernel's
-   bound (5, 6, 8-11) counts the fewest box and triangle tests that any
-   of the walks counted here makes on the same rays; its own walk's
-   count gives walk_bound_ms beside it. Kernel 7 alone in both modes on
+   bound (5, 6, 8-11) counts the fewest operations of the box and
+   triangle tests that any of the walks counted here makes on the same
+   rays (a triangle test's second half only where its first passes, as
+   for A, B and 4); its own walk's count gives walk_bound_ms beside it. Kernel 7 alone in both modes on
    the Cornell frame's inputs, and the DI and GI stages on both scenes
    with the probe switch off, on, on, off.
 
@@ -234,13 +241,15 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
 
 
 #: The kernels whose instructions per ray-triangle test sass_per_test
-#: counts: A, B, 4, and C in its default (flat, no_metal) variant.
+#: counts: A, B, 4, C in its default (flat, no_metal) variant, and the
+#: timed variants of 8 and 9.
 SASS_KERNELS = {"A": "closest_brute_kernel", "B": "anyhit_brute_kernel",
-                "4": "surface_closest_kernel", "C": "ref_megakernelILb1ELb1E"}
+                "4": "surface_closest_kernel", "C": "ref_megakernelILb1ELb1E",
+                "8": "cluster_surface_kernelILb0E", "9": "cluster_anyhit_kernelILb0E"}
 
 
 def sass_per_test(lib) -> dict | None:
-    """Instructions per ray-triangle test of kernels A, B, 4 and C as
+    """Instructions per ray-triangle test of kernels A, B, 4, C, 8 and 9 as
     compiled, from ``cuobjdump -sass`` of the built library (``sass_loops``).
     None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -346,7 +355,7 @@ def anyhit_flops(rows, o, d, t_max, chunk: int = 256) -> int:
     """Operations kernel B needs, ray by ray: each row up to the first
     occluder through u (FLOPS_MT_FRONT), and the rest of the test where
     |det| >= eps and 0 <= u <= 1."""
-    from strolle_tpu_torch.ops.intersect import F32_EPS
+    from strolle_tpu_torch.ops.intersect import front_passes
     from strolle_tpu_torch.ops.kernels.trace_kernels import _row_isect
 
     o, d, t_max = o.reshape(-1, 1, 3), d.reshape(-1, 1, 3), t_max.reshape(-1, 1)
@@ -358,7 +367,7 @@ def anyhit_flops(rows, o, d, t_max, chunk: int = 256) -> int:
         # rows tested: up to and including the first occluder
         last = torch.where(hits.any(-1), hits.int().argmax(-1) + 1, hits.shape[1])
         tested = (torch.arange(hits.shape[1], device=o.device) < last[:, None]) & ~done[:, None]
-        front = (det.abs() >= F32_EPS) & (u >= 0.0) & (u <= 1.0)
+        front = front_passes(u, det)
         tests += int(tested.sum())
         fronts += int((tested & front).sum())
         done |= hits.any(-1)
@@ -369,14 +378,14 @@ def closest_flops(rows, o, d, chunk: int = 256) -> int:
     """Operations kernels A and 4 need, ray by ray: every row through u
     (FLOPS_MT_FRONT), and the rest of the test where |det| >= eps and
     0 <= u <= 1 (a closest hit tests every row)."""
-    from strolle_tpu_torch.ops.intersect import F32_EPS
+    from strolle_tpu_torch.ops.intersect import front_passes
     from strolle_tpu_torch.ops.kernels.trace_kernels import _row_isect
 
     o, d = o.reshape(-1, 1, 3), d.reshape(-1, 1, 3)
     fronts = 0
     for c0 in range(0, rows.shape[0], chunk):
         _, u, _, det = _row_isect(rows[c0:c0 + chunk], o, d)
-        fronts += int(((det.abs() >= F32_EPS) & (u >= 0.0) & (u <= 1.0)).sum())
+        fronts += int(front_passes(u, det).sum())
     return o.shape[0] * rows.shape[0] * FLOPS_MT_FRONT + fronts * (FLOPS_MT - FLOPS_MT_FRONT)
 
 
@@ -888,28 +897,47 @@ def drive_flat_dungeon(flat, scene, luts, device) -> dict:
 
 def stream_cost(x: dict, anyhit: bool) -> dict:
     """Kernel 5 or 6's walk on these inputs (the counting variant's box and
-    triangle tests) and the bytes it must move (rows and boxes read once,
-    rays in and results out); ``least_work_bounds`` makes the bounds."""
+    triangle tests, ``fronts_of``' tests whose first half passes) and the
+    bytes it must move (rows and boxes read once, rays in and results
+    out); ``least_work_bounds`` makes the bounds."""
     n = x["o"].numel() // 3
     work = torch.zeros((n, 2), dtype=torch.int32, device=x["o"].device)
     stream_launch(x, anyhit, work)
     box, tri = (int(v) for v in work.sum(0, dtype=torch.int64))
+    pwork = torch.zeros((n, 3), dtype=torch.int32, device=work.device)
+    stream_plain(x, anyhit, pwork)
     nbytes = (4 * (x["rows"].numel() + x["clus"].numel() + x["subs"].numel())
               + n * (24 + 4) + n * (1 if anyhit else 16))
-    return {"work": {"rays": n, "box_tests": box, "triangle_tests": tri}, "bytes": nbytes}
+    return {"work": {"rays": n, "box_tests": box, "triangle_tests": tri,
+                     "fronts": fronts_of(work, pwork, "5" if not anyhit else "6")},
+            "bytes": nbytes}
+
+
+def fronts_of(work, pwork, key: str) -> int:
+    """The triangle tests of a walk whose first half passes (|det| >= eps
+    and 0 <= u <= 1), from its plain version's third work column
+    (``pwork`` [R, 3]), whose box and triangle tests must equal the
+    kernel's counting variant's (``work`` [R, 2]) on every ray."""
+    wmism = int((pwork[:, :2] != work).any(-1).sum())
+    check(wmism == 0, f"kernel {key}: the plain version's test counts differ on {wmism} rays")
+    return int(pwork[:, 2].sum(dtype=torch.int64))
 
 
 def walk_ops(work: dict) -> int:
-    """fp32 operations of a walk's box and triangle tests."""
-    return work["box_tests"] * FLOPS_SLAB + work["triangle_tests"] * FLOPS_MT
+    """fp32 operations of a walk's box and triangle tests: each triangle
+    test to u (FLOPS_MT_FRONT), the rest where the first half passes."""
+    return (work["box_tests"] * FLOPS_SLAB + work["triangle_tests"] * FLOPS_MT_FRONT
+            + work["fronts"] * (FLOPS_MT - FLOPS_MT_FRONT))
 
 
 def least_work_bounds(costs: dict) -> None:
     """Sets each walking kernel's bound_ms from the work its function
-    needs on its rays: the fewest box and triangle test operations of the
-    walks counted here on the same rays (closest hit: kernels 5, 8, 10 on
-    the primaries; any hit: 6, 9, 11 on the light shadow rays), plus the
-    resolve of each hit ray for 8 and 10, against the kernel's own bytes.
+    needs on its rays: the fewest box and triangle test operations
+    (``walk_ops``: a triangle test's second half only where its first
+    passes, as ``closest_flops`` counts) of the walks counted here on the
+    same rays (closest hit: kernels 5, 8, 10 on the primaries; any hit: 6,
+    9, 11 on the light shadow rays), plus the resolve of each hit ray for
+    8 and 10, against the kernel's own bytes.
     walk_bound_ms is the same with the kernel's own walk's tests, which
     is no bound of the function: another walk needs fewer."""
     for group in (("5", "8", "10"), ("6", "9", "11")):
@@ -946,9 +974,10 @@ def walk_inputs(scene, key: str, o, d, t_max=None) -> dict:
     return dict(key=key, table=table, rows=rows, o=o, d=d, t_max=tm)
 
 
-def walk_launch(x: dict, work=None):
+def walk_launch(x: dict, work=None, list_cap: int | None = None):
     """One launch of kernel 8, 9, 10 or 11 (the counting variant when
-    ``work`` is given) on prepared inputs, past the wrapper and its launch
+    ``work`` is given; kernels 8 and 9 under the module's list cap unless
+    ``list_cap``) on prepared inputs, past the wrapper and its launch
     count; returns its outputs."""
     from strolle_tpu_torch.ops.kernels import cluster_kernels as ck
     from strolle_tpu_torch.ops.kernels import cuda_lib
@@ -959,7 +988,8 @@ def walk_launch(x: dict, work=None):
         outs = (torch.empty(batch, dtype=torch.bool, device=x["o"].device),)
     else:
         outs = cuda_lib.surface_outputs(batch, x["o"].device)
-    head = (ck.launch_head(x["table"], x["rows"]) if mod == "cluster"
+    cap = ck.LIST_CAP if list_cap is None else list_cap
+    head = (ck.launch_head(x["table"], x["rows"], cap) if mod == "cluster"
             else (x["table"], x["rows"]))
     cuda_lib.launch_walk("strolle_" + name, head, x["o"], x["d"], x["t_max"], outs, work)
     return outs
@@ -972,15 +1002,33 @@ def walk_module(key: str):
     return cluster_kernels if WALK_KERNELS[key][1] == "cluster" else bvh_kernels
 
 
-def walk_plain(x: dict, work=None):
-    """The plain version of kernel 8, 9, 10 or 11 on the same inputs, its
-    outputs in the order ``walk_launch`` returns them."""
+def walk_plain(x: dict, work=None, list_cap: int | None = None):
+    """The plain version of kernel 8, 9, 10 or 11 on the same inputs (8 and
+    9 under ``list_cap`` where given), its outputs in the order
+    ``walk_launch`` returns them."""
     name, _, anyhit, _, _ = WALK_KERNELS[x["key"]]
     fn = getattr(walk_module(x["key"]), name + "_plain")
+    kw = {} if list_cap is None else {"list_cap": list_cap}
     if anyhit:
-        return (fn(x["table"], x["rows"], x["o"], x["d"], x["t_max"], work),)
-    t, tri, _, _, normal, uv, mat = fn(x["table"], x["rows"], x["o"], x["d"], work)
+        return (fn(x["table"], x["rows"], x["o"], x["d"], x["t_max"], work, **kw),)
+    t, tri, _, _, normal, uv, mat = fn(x["table"], x["rows"], x["o"], x["d"], work, **kw)
     return t, tri, normal, uv, mat
+
+
+def walk_mismatch(got, want, anyhit: bool) -> tuple[int, float]:
+    """Rays whose kernel 8-11 outputs differ from ``want`` in any field, and
+    the max abs error of the float fields where tri agrees (any hit: the
+    flags as 0/1)."""
+    n = got[0].numel()
+    differ = torch.zeros(n, dtype=torch.bool, device=got[0].device)
+    for a, b in zip(got, want):
+        differ |= (a != b).reshape(n, -1).any(-1)
+    if anyhit:
+        return int(differ.sum()), float(differ.float().max())
+    agree = got[1] == want[1]
+    e = max(float((a - b)[agree].abs().nan_to_num(0.0).max())
+            for a, b in zip(got, want) if a.is_floating_point())
+    return int(differ.sum()), e
 
 
 def compare_walk_kernels(scene, sets: dict, device) -> dict:
@@ -1015,18 +1063,8 @@ def compare_walk_kernels(scene, sets: dict, device) -> dict:
             # sqrt and divide on both sides); allow 1e-5 of rays for the
             # plain version's float64 emulation of fma (double rounding
             # near a float32 midpoint).
-            differ = torch.zeros(n, dtype=torch.bool, device=device)
-            for a, b in zip(got, want):
-                differ |= (a != b).reshape(n, -1).any(-1)
-            if anyhit:
-                e = float(differ.float().max())
-                rate = got[0].float().mean().item()
-            else:
-                agree = got[1] == want[1]
-                e = max(float((a - b)[agree].abs().nan_to_num(0.0).max())
-                        for a, b in zip(got, want) if a.is_floating_point())
-                rate = (got[1] >= 0).float().mean().item()
-            mism = int(differ.sum())
+            mism, e = walk_mismatch(got, want, anyhit)
+            rate = got[0].float().mean().item() if anyhit else (got[1] >= 0).float().mean().item()
             wmism = int((work != pwork).any(-1).sum())
             print(f"{what} vs plain: rays differing {mism}, max err {e:.3g}, work mismatches "
                   f"{wmism}, box tests {int(work[:, 0].sum())}, triangle tests "
@@ -1047,21 +1085,120 @@ def compare_walk_kernels(scene, sets: dict, device) -> dict:
     return err
 
 
+def compare_cluster_walks(scene, sets: dict, device) -> dict:
+    """Kernels 8 (primaries, random rays) and 9 (shadow rays toward the
+    lights and the sun, the realtime GI shadow rays, random rays) on their
+    overflow path, list caps OVERFLOW_CAPS below the dungeon's cluster
+    count, against their plain versions under the same cap (outputs and
+    per-ray work, bit-equal) and against the kernel's front-to-back walk
+    (the module's cap: the walk order must not change a result); then the
+    index-order walk's (cap 0) box and triangle tests per ray beside the
+    front-to-back walk's on the same rays. Kernel 8's triangle tests per
+    primary must be fewer front to back. Then kernels 8 and 9 on a tie
+    set: the dungeon's rows twice over, clustered anew, where every hit
+    ties with its copy and the lower must win (kernel 8: tri equal to the
+    plain version's on every ray and every hit on the first copy).
+    Returns the per-ray counts by kernel and ray set."""
+    from strolle_tpu_torch.ops.kernels import cluster_kernels as ck
+
+    walks = {}
+    for name, key in (("primary", "8"), ("random", "8"), ("lights", "9"), ("sun", "9"),
+                      ("gi", "9"), ("random", "9")):
+        o, d, t_max = sets[name]
+        x = walk_inputs(scene, key, o, d, t_max)
+        anyhit = key == "9"
+        n = o.numel() // 3
+        per_ray = {}
+        ref = walk_launch(x)
+        for cap in (ck.LIST_CAP,) + OVERFLOW_CAPS:
+            work = torch.zeros((n, 2), dtype=torch.int32, device=device)
+            got = walk_launch(x, work, list_cap=cap)
+            per_ray[cap] = [float(v) / n for v in work.sum(0, dtype=torch.int64)]
+            pwork = torch.zeros_like(work)
+            want = walk_plain(x, pwork, list_cap=cap)
+            torch.cuda.synchronize()
+            what = f"kernel {key} ({name}, list cap {cap})"
+            mism, e = walk_mismatch(got, want, anyhit)
+            wmism = int((work != pwork).any(-1).sum())
+            rmism, re = walk_mismatch(got, ref, anyhit)
+            bound = (x["t_max"] if anyhit
+                     else torch.full((n,), math.inf, device=device)).reshape(-1)
+            _, _, count = ck.warp_lists(x["table"], o.reshape(-1, 3), d.reshape(-1, 3), bound)
+            share = (count > cap).float().mean().item()
+            print(f"{what} vs plain: rays differing {mism}, max err {e:.3g}, work mismatches "
+                  f"{wmism}, warps overflowing {share:.3f}; vs list cap {ck.LIST_CAP}: rays "
+                  f"differing {rmism}, max err {re:.3g}", flush=True)
+            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+            check(wmism <= 1e-5 * n, f"{what}: test counts differ on {wmism} rays")
+            check(anyhit or e <= 1e-5, f"{what}: fields differ by {e}")
+            check(rmism <= 1e-5 * n, f"{what}: {rmism} rays differ from list cap {ck.LIST_CAP}")
+        print(f"kernel {key} ({name}) per ray: front to back {per_ray[ck.LIST_CAP][0]:.2f} box "
+              f"and {per_ray[ck.LIST_CAP][1]:.2f} triangle tests; index order (list cap 0, its "
+              f"{x['table'].shape[0]} list tests included) {per_ray[0][0]:.2f} and "
+              f"{per_ray[0][1]:.2f}; list cap 4 {per_ray[4][0]:.2f} and {per_ray[4][1]:.2f}",
+              flush=True)
+        walks[f"{key} {name}"] = {"front_to_back": per_ray[ck.LIST_CAP],
+                                  "index_order": per_ray[0], "list_cap_4": per_ray[4]}
+    primary = walks["8 primary"]
+    check(primary["front_to_back"][1] < primary["index_order"][1],
+          "kernel 8: the front-to-back walk tests no fewer triangles per primary")
+
+    from strolle_tpu_torch.ops.trace import packed_geom_rows
+
+    rows = doubled(packed_geom_rows(scene))
+    v0 = rows[:, 0:3]
+    table = ck.clusterize_bvh(None, rows.shape[0], torch.stack(
+        [v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]], dim=1)).contiguous()
+    for name, key in (("primary", "8"), ("random", "8"), ("lights", "9"), ("random", "9")):
+        o, d, t_max = sets[name]
+        x = dict(walk_inputs(scene, key, o, d, t_max), table=table, rows=rows)
+        n = o.numel() // 3
+        got, want = walk_launch(x), walk_plain(x)
+        torch.cuda.synchronize()
+        mism, e = walk_mismatch(got, want, key == "9")
+        what = (f"kernel {key} on ties ({name}, the dungeon's rows twice over, "
+                f"{table.shape[0]} clusters)")
+        if key == "8":
+            # Both copies of a winner are tested wherever the walk enters
+            # both clusters; a cluster entered after the hit is re-tested
+            # against best t times TIE_REACH, so the cluster of the first
+            # copy is entered even where the copy lies on the box face the
+            # ray enters by and the slab's t_near rounds a few ulps past
+            # its t: every hit must land on the first copy, as in the
+            # index-order walk.
+            hit = got[1] >= 0
+            lower = int((got[1][hit] < rows.shape[0] // 2).sum())
+            print(f"{what} vs plain: rays differing {mism}, max err {e:.3g}; {lower} of "
+                  f"{int(hit.sum())} hits on the first copy", flush=True)
+            check(mism == 0, f"{what}: {mism} rays differ from the plain version")
+            check(e <= 1e-5, f"{what}: fields differ by {e}")
+            check(lower == int(hit.sum()) > 0,
+                  f"{what}: {int(hit.sum()) - lower} hits on the second copy")
+        else:
+            print(f"{what} vs plain: rays differing {mism}", flush=True)
+            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+    return walks
+
+
 def walk_cost(x: dict) -> dict:
     """Kernel 8, 9, 10 or 11's walk on these inputs (the counting
-    variant's box and triangle tests, and its hit rays, each resolved
-    once) and the bytes it must move (the table and rows read once, rays
-    in and results out); ``least_work_bounds`` makes the bounds."""
+    variant's box and triangle tests, ``fronts_of``' tests whose first half
+    passes, and its hit rays, each resolved once) and the bytes it must
+    move (the table and rows read once, rays in and results out);
+    ``least_work_bounds`` makes the bounds."""
     anyhit = x["t_max"] is not None
     n = x["o"].numel() // 3
     work = torch.zeros((n, 2), dtype=torch.int32, device=x["o"].device)
     outs = walk_launch(x, work)
     box, tri = (int(v) for v in work.sum(0, dtype=torch.int64))
+    pwork = torch.zeros((n, 3), dtype=torch.int32, device=work.device)
+    walk_plain(x, pwork)
     hits = 0 if anyhit else int((outs[1] >= 0).sum())
     # out: t, tri, normal [3], uv [2], mat_id = 32 B per ray; or the flag
     nbytes = (4 * (x["rows"].numel() + x["table"].numel()) + n * (24 + (4 if anyhit else 0))
               + n * (1 if anyhit else 32))
-    return {"work": {"rays": n, "box_tests": box, "triangle_tests": tri, "hits": hits},
+    return {"work": {"rays": n, "box_tests": box, "triangle_tests": tri,
+                     "fronts": fronts_of(work, pwork, x["key"]), "hits": hits},
             "bytes": nbytes}
 
 
@@ -1796,6 +1933,7 @@ def main() -> int:
     # --- 5b. kernels 8-11 against their plain versions ---------------------
     phase("5b")
     err.update(compare_walk_kernels(dg, ssets, device))
+    cluster_walks = compare_cluster_walks(dg, ssets, device)
 
     # --- 5c. the dungeon under the cluster and packet strategies ------------
     phase("5c")
@@ -2055,6 +2193,7 @@ def main() -> int:
         "dungeon_profile_ref": turns[0]["profile_ref"],
         "walk_costs": cost,
         "stream_walks_per_ray": stream_walks,
+        "cluster_walks_per_ray": cluster_walks,
         "stream_anyhit_long_rays_ms": ms_6_long,
         "brute_over_1024_rows": brute_flat,
         "flat_dungeon_launches": flat_launches,

@@ -1,19 +1,18 @@
-"""Times kernels 5 and 6 (the big-scene stream kernels), A and 4 (the
-brute-force closest hit, and with the surface resolved), B (the
-brute-force any hit) and C (the reference-mode megakernel) of this
-checkout against those of other checkouts, on the same inputs of the
-same card, in turns.
+"""Times kernels 5 and 6 (the big-scene stream kernels), 8 and 9 (the
+cluster kernels), A and 4 (the brute-force closest hit, and with the
+surface resolved), B (the brute-force any hit) and C (the reference-mode
+megakernel) of this checkout against those of other checkouts, on the
+same inputs of the same card, in turns.
 
 Run from the root of the repository, on a CUDA card:
 
-    python3 stream_turns.py [--kernels 5,6,A,B,4,C] OTHER_ROOT [OTHER_ROOT ...]
+    python3 stream_turns.py [--kernels 5,6,8,9,A,B,4,C] OTHER_ROOT [OTHER_ROOT ...]
 
 OTHER_ROOT is the root of another checkout of the repository (for
 example the parent commit, unpacked with ``git archive`` into a directory
 that .gitignore lists). Each checkout's ``strolle_tpu_torch`` is imported
 under a name of its own and builds its kernels from its own sources.
-``--kernels`` picks the kernels to time (all six by default; 5 and 6
-share their inputs and are timed together).
+``--kernels`` picks the kernels to time (all eight by default).
 
 The inputs of kernels 5 and 6: the dungeon at 800x608 with the sun at
 0.35 (chip_smoke.py's scene), chip_smoke.py's ray sets (primaries and
@@ -22,7 +21,10 @@ rays toward the sun with t_max = inf and the random rays for kernel 6),
 and the inputs of every kernel 5 and 6 launch of one reference sample
 (depth 4, the sky) and of one 6-frame realtime GI cycle
 (RenderConfig(include_sky=True)), named by the line that called
-``trace_anyhit`` or ``trace_surface``. Kernel A: Cornell's primaries at
+``trace_anyhit`` or ``trace_surface``. Kernels 8 and 9 the same, with the
+realtime GI shadow rays (captured from frame 0) among kernel 9's sets,
+and the launches captured under BIG_SCENE_STRATEGY "cluster". Kernel A:
+Cornell's primaries at
 800x608, every kernel A launch of one staged sample on Cornell (depth 4,
 use_pallas=False: the gradient route), the dungeon without its BVH
 (8,400 rows) on chip_smoke.py's 65,536 random rays, and every kernel A
@@ -37,16 +39,16 @@ variants (chip_smoke.py's scenes).
 
 The turns: for each set, the other checkouts in the order given, this
 checkout twice, the others in reverse (A B B A). A turn launches the
-checkout's kernel alone on inputs prepared once: kernels 5 and 6 through
-its own ``cuda_lib.launch_walk`` and ``launch_head`` (sub-block boxes,
-scene-box cap or clipped t_max: the wrappers' set-up, the same in every
-checkout), A, B, 4 and C through its library's C entry point, into
+checkout's kernel alone on inputs prepared once: kernels 5, 6, 8 and 9
+through its own ``cuda_lib.launch_walk`` and ``launch_head`` (for 5 and 6
+sub-block boxes, scene-box cap or clipped t_max: the wrappers' set-up,
+the same in every checkout), A, B, 4 and C through its library's C entry point, into
 outputs allocated once. Each is timed with CUDA events (median of 15
 after 3; for A, B and 4, of 20 launches in a row, divided by 20), each
 timed run queued behind a ~1 ms sleep of the device, so that the host's
 time per launch stays out. Prints the card's line, per set the ms of every turn and
 whether every turn's outputs equal this checkout's (tri and t for 5, the
-flags for 6 and B, every output of A and 4, the radiance for C), the sum
+flags for 6, 9 and B, every output of 8, A and 4, the radiance for C), the sum
 over the captured launches per turn, and last one JSON object of all of
 it. For
 C it also prints each checkout's kernel against its own plain version
@@ -75,7 +77,7 @@ import chip_smoke as cs
 
 WIDTH, HEIGHT = 800, 608
 GI_CYCLE = 6
-KERNELS = ("5", "6", "A", "B", "4", "C")
+KERNELS = ("5", "6", "8", "9", "A", "B", "4", "C")
 #: ~1 ms of the device's sleep ahead of each timed run of launches
 SLEEP_CYCLES = 2_000_000
 #: The names of the launches captured on the BVH-less dungeon begin so.
@@ -94,15 +96,25 @@ def load_kernels(root: Path, alias: str):
     return importlib.import_module(alias + ".ops.kernels.stream_kernels")
 
 
-def capture_launches(scene, cam, luts, dev) -> list:
-    """(kernel, call site, o, d, t_max) of every kernel 5 and 6 launch of
-    one reference sample and one realtime GI cycle on this checkout."""
+#: The big-scene kernels timed here: (strategy, wrapper module, closest-hit
+#: kernel and wrapper, any-hit kernel and wrapper).
+WALKS = {
+    "stream": ("stream_kernels", ("5", "stream_trace_surface"), ("6", "stream_trace_anyhit")),
+    "cluster": ("cluster_kernels", ("8", "cluster_trace_surface"), ("9", "cluster_trace_anyhit")),
+}
+
+
+def capture_launches(scene, cam, luts, dev, walk: str) -> list:
+    """(kernel, call site, o, d, t_max) of every launch of the ``walk``
+    strategy's two kernels (5 and 6, or 8 and 9) in one reference sample
+    and one realtime GI cycle on this checkout, under that strategy."""
     from strolle_tpu_torch.models.reference import trace_sample
     from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame_fused
-    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 
+    module, (ks, surface_name), (ka, anyhit_name) = WALKS[walk]
+    mod = importlib.import_module("strolle_tpu_torch.ops.kernels." + module)
     calls = []
-    surface, anyhit = sk.stream_trace_surface, sk.stream_trace_anyhit
+    surface, anyhit = getattr(mod, surface_name), getattr(mod, anyhit_name)
 
     def site() -> str:
         # the first caller outside ops/ (the trace dispatch, the checkerboard)
@@ -112,24 +124,27 @@ def capture_launches(scene, cam, luts, dev) -> list:
         return f"{Path(f.f_code.co_filename).name}:{f.f_lineno}"
 
     def rec_surface(clus, rows, o, d, work=None):
-        calls.append(("5", site(), o.clone(), d.clone(), None))
+        calls.append((ks, site(), o.clone(), d.clone(), None))
         return surface(clus, rows, o, d, work)
 
     def rec_anyhit(clus, rows, o, d, t_max, work=None):
         tm = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
                                 o.shape[:-1])
-        calls.append(("6", site(), o.clone(), d.clone(), tm.clone()))
+        calls.append((ka, site(), o.clone(), d.clone(), tm.clone()))
         return anyhit(clus, rows, o, d, t_max, work)
 
-    sk.stream_trace_surface, sk.stream_trace_anyhit = rec_surface, rec_anyhit
+    setattr(mod, surface_name, rec_surface)
+    setattr(mod, anyhit_name, rec_anyhit)
     try:
-        trace_sample(scene, cam, cs.SEED, depth=cs.DEPTH, include_sky=True, luts=luts)
-        state = init_state(cam, device=dev)
-        for f in range(GI_CYCLE):
-            _, state = render_frame_fused(scene, cam, state, f, RenderConfig(include_sky=True),
-                                          luts)
+        with cs.strategy(walk):
+            trace_sample(scene, cam, cs.SEED, depth=cs.DEPTH, include_sky=True, luts=luts)
+            state = init_state(cam, device=dev)
+            for f in range(GI_CYCLE):
+                _, state = render_frame_fused(scene, cam, state, f,
+                                              RenderConfig(include_sky=True), luts)
     finally:
-        sk.stream_trace_surface, sk.stream_trace_anyhit = surface, anyhit
+        setattr(mod, surface_name, surface)
+        setattr(mod, anyhit_name, anyhit)
     torch.cuda.synchronize()
     return calls
 
@@ -242,44 +257,61 @@ def captured_totals(results, labels, kernels) -> dict:
     return totals
 
 
-def stream_turns(order, labels, dev) -> tuple[list, dict]:
-    """Kernels 5 and 6 in turns on the dungeon's sets and captured launches."""
+def walk_turns(order, labels, dev, walk: str, kernels: set) -> tuple[list, dict]:
+    """Kernels 5 and 6 ("stream") or 8 and 9 ("cluster"), those of
+    ``kernels``, in turns on the dungeon's sets and captured launches."""
     from strolle_tpu_torch.scene.demo import dungeon_camera
 
+    module, (ks, _), (ka, _) = WALKS[walk]
     scene, luts = cs.dungeon_scene(dev)
     cam = dungeon_camera(WIDTH, HEIGHT, device=dev)
     sets = cs.stream_ray_sets(scene, cam, dev, luts)
-    rays = [("5", "primary", sets["primary"][0], sets["primary"][1], None),
-            ("5", "random", *sets["random"][:2], None)]
-    rays += [("6", name, *sets[name]) for name in ("lights", "sun", "random")]
-    captured = capture_launches(scene, cam, luts, dev)
+    rays = [(ks, name, *sets[name][:2], None) for name in ("primary", "random")]
+    rays += [(ka, name, *sets[name])
+             for name in (("lights", "sun", "random") if walk == "stream"
+                          else ("lights", "sun", "gi", "random"))]
+    captured = capture_launches(scene, cam, luts, dev, walk)
     seen: dict = {}
     for k, where, o, d, tm in captured:
         seen[(k, where)] = seen.get((k, where), 0) + 1
         rays.append((k, f"{where}#{seen[(k, where)]}", o, d, tm))
-    print(f"{len(captured)} kernel 5/6 launches captured", flush=True)
-    cases = [(k, name, cs.stream_inputs(scene, o.contiguous(), d.contiguous(),
-                                        tm if k == "6" else None), o.numel() // 3)
-             for k, name, o, d, tm in rays]
+    print(f"{len(captured)} kernel {ks}/{ka} launches captured", flush=True)
+    rays = [r for r in rays if r[0] in kernels]
 
-    def prep(mod, k, x):
+    def inputs(k, o, d, tm):
+        o, d = o.contiguous(), d.contiguous()
+        if walk == "stream":
+            return cs.stream_inputs(scene, o, d, tm if k == ka else None)
+        return cs.walk_inputs(scene, k, o, d, tm)
+
+    cases = [(k, name, inputs(k, o, d, tm), o.numel() // 3) for k, name, o, d, tm in rays]
+
+    def prep(smod, k, x):
+        mod = importlib.import_module(smod.__name__.rsplit(".", 1)[0] + "." + module)
         batch = x["o"].shape[:-1]
-        if k == "5":
+        anyhit = k == ka
+        if anyhit:
+            outs = (torch.empty(batch, dtype=torch.bool, device=dev),)
+        elif walk == "stream":
             t = torch.empty(batch, device=dev)
-            tri = torch.empty(batch, dtype=torch.int32, device=dev)
-            outs, entry = (t, tri, torch.empty_like(t), torch.empty_like(t)), "surface"
+            outs = (t, torch.empty(batch, dtype=torch.int32, device=dev), torch.empty_like(t),
+                    torch.empty_like(t))
         else:
-            outs, entry = (torch.empty(batch, dtype=torch.bool, device=dev),), "anyhit"
-        head = mod.launch_head(x["clus"], x["subs"], x["rows"])
+            outs = mod.cuda_lib.surface_outputs(batch, dev)
+        if walk == "stream":
+            head, ray_arg = mod.launch_head(x["clus"], x["subs"], x["rows"]), x["cap"]
+        else:
+            head, ray_arg = mod.launch_head(x["table"], x["rows"]), x["t_max"]
+        entry = f"strolle_{walk}_trace_{'anyhit' if anyhit else 'surface'}"
 
         def launch():
-            mod.cuda_lib.launch_walk(f"strolle_stream_trace_{entry}", head, x["o"], x["d"],
-                                     x["cap"], outs, None)
+            mod.cuda_lib.launch_walk(entry, head, x["o"], x["d"], ray_arg, outs, None)
 
+        # kernel 5's outputs compared: tri and t; kernel 8's: all
         return launch, ((outs[1], outs[0]) if k == "5" else outs)
 
     results = in_turns(order, labels, cases, prep)
-    return results, captured_totals(results, labels, ("5", "6"))
+    return results, captured_totals(results, labels, sorted({ks, ka} & kernels))
 
 
 def brute_turns(order, labels, dev, kernels) -> tuple[list, dict, list]:
@@ -434,10 +466,11 @@ def main(argv: list[str]) -> int:
     order = others + [mine, mine] + others[::-1]
     labels = names + ["this", "this"] + names[::-1]
     results, totals, within = [], {}, []
-    if kernels & {"5", "6"}:
-        r, t = stream_turns(order, labels, dev)
-        results += r
-        totals.update(t)
+    for walk, (_, (ks, _), (ka, _)) in WALKS.items():
+        if kernels & {ks, ka}:
+            r, t = walk_turns(order, labels, dev, walk, kernels)
+            results += r
+            totals.update(t)
     if kernels & {"A", "B", "4", "C"}:
         r, t, within = brute_turns(order, labels, dev, kernels)
         results += r

@@ -47,6 +47,13 @@ def fma_cross(a, b):
     )
 
 
+def front_passes(u, det) -> torch.Tensor:
+    """Where the first half of the split Möller-Trumbore test of the CUDA
+    kernels passes (|det| >= eps and 0 <= u <= 1): the ray-row pairs on
+    which it goes on past u (``ray_triangle_edges``' u and det)."""
+    return (torch.abs(det) >= F32_EPS) & (u >= 0.0) & (u <= 1.0)
+
+
 def ray_triangle_edges(o, d, v0, e1, e2):
     """Möller-Trumbore on a triangle given as v0 and its edges
     e1 = v1 - v0, e2 = v2 - v0 (the packed [T, 12] rows).

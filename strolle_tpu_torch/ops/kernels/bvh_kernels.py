@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from ..intersect import ray_triangle_edges, safe_inv_dir, slab
+from ..intersect import front_passes, ray_triangle_edges, safe_inv_dir, slab
 from . import cuda_lib
 from .trace_kernels import resolve_winner
 
@@ -62,8 +62,9 @@ def _walk(node_rows, of, df, best, live, work, on_leaf_row):
     the rays in ``live`` whose stacks are not empty. ``best`` [R] bounds
     the slab tests. ``on_leaf_row(ids, rows_idx)`` tests rays ``ids``
     against one row each and returns a mask of the rays that leave the
-    walk (or None). ``work`` [R, 2] (optional) counts box and triangle
-    tests."""
+    walk (or None). ``work`` [R, 2] or [R, 3] (optional) counts box and
+    triangle tests (a third column: ``on_leaf_row`` adds the tests whose
+    first half passes, ``front_passes``)."""
     r = of.shape[0]
     dev = of.device
     inv = safe_inv_dir(df)
@@ -110,11 +111,18 @@ def _walk(node_rows, of, df, best, live, work, on_leaf_row):
         live = live[p > 0]
 
 
+def _count_fronts(work, ids, u, det) -> None:
+    """Adds the tests of rays ``ids`` (one row each) whose first half
+    passes to ``work``'s third column, where it has one."""
+    if work is not None and work.shape[1] > 2:
+        work[ids, 2] += front_passes(u, det).to(torch.int32)
+
+
 def bvh_trace_surface_plain(node_rows, geom_rows, o, d, work=None):
     """Plain version of kernel 10: (t, tri, u, v, normal, uv, mat_id) over
     o's batch shape; t = +inf, tri = -1 and zeros on a miss. ``work``
     [R, 2] int32 (optional) accumulates each ray's box and triangle
-    tests."""
+    tests; [R, 3] also the tests whose first half passes."""
     batch = o.shape[:-1]
     of = o.reshape(-1, 3)
     df = d.reshape(-1, 3)
@@ -126,7 +134,9 @@ def bvh_trace_surface_plain(node_rows, geom_rows, o, d, work=None):
 
     def on_leaf_row(ids, rows_idx):
         row = geom_rows[rows_idx]
-        t, u, v, _ = ray_triangle_edges(of[ids], df[ids], row[:, 0:3], row[:, 3:6], row[:, 6:9])
+        t, u, v, det = ray_triangle_edges(of[ids], df[ids], row[:, 0:3], row[:, 3:6],
+                                          row[:, 6:9])
+        _count_fronts(work, ids, u, det)
         better = t < best[ids]
         w = ids[better]
         best[w] = t[better]
@@ -153,7 +163,9 @@ def bvh_trace_anyhit_plain(node_rows, geom_rows, o, d, t_max, work=None):
 
     def on_leaf_row(ids, rows_idx):
         row = geom_rows[rows_idx]
-        t = ray_triangle_edges(of[ids], df[ids], row[:, 0:3], row[:, 3:6], row[:, 6:9])[0]
+        t, u, _, det = ray_triangle_edges(of[ids], df[ids], row[:, 0:3], row[:, 3:6],
+                                          row[:, 6:9])
+        _count_fronts(work, ids, u, det)
         hit = t < tm[ids]
         occ[ids[hit]] = True
         return hit

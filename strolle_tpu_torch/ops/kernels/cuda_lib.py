@@ -72,12 +72,14 @@ _SIGNATURES = {
     # clus, subs, n_clusters, list_cap, rows, n_rows, o, d, t_max, n_rays,
     # occluded, work, stream
     "strolle_stream_trace_anyhit": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
-    # clus, n_clusters, rows, n_rows, o, d, n_rays, t, tri, normal, uv, mat,
-    # work (NULL: the timed variant), stream
-    "strolle_cluster_trace_surface": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
-    # clus, n_clusters, rows, n_rows, o, d, t_max, n_rays, occluded, work,
-    # stream
-    "strolle_cluster_trace_anyhit": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # clus, n_clusters, list_cap, rows, n_rows, o, d, n_rays, t, tri, normal,
+    # uv, mat, work (NULL: the timed variant), stream
+    "strolle_cluster_trace_surface": [
+        _P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+    ],
+    # clus, n_clusters, list_cap, rows, n_rows, o, d, t_max, n_rays, occluded,
+    # work, stream
+    "strolle_cluster_trace_anyhit": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     # nodes, rows, o, d, n_rays, t, tri, normal, uv, mat, work, stream
     "strolle_bvh_trace_surface": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # nodes, rows, o, d, t_max, n_rays, occluded, work, stream

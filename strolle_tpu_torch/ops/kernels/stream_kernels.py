@@ -31,24 +31,21 @@ version for CPU tensors and launches the kernel for CUDA tensors.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from ..intersect import ray_triangle_edges, safe_inv_dir, slab
+from ..intersect import safe_inv_dir, slab
 from . import cuda_lib
-from .cluster_kernels import CLUSTER_TRIS, check_clusters
-from .cluster_kernels import clusterize_bvh, num_clusters  # noqa: F401
+from .cluster_kernels import (
+    CLUSTER_TRIS, LIST_CAP, STAGE_ROWS, check_clusters, count_tests, first_hits, keep_closest,
+    live_rays, row_hits, warp_lists, warp_steps,
+)
+from .cluster_kernels import TILE_RAYS, clusterize_bvh, num_clusters  # noqa: F401
 
-#: Sub-blocks per cluster, and triangles per sub-block.
+#: Sub-blocks per cluster, and triangles per sub-block (a staged block).
 SUB = 8
 SUB_TRIS = CLUSTER_TRIS // SUB
-#: Rays walked together: a warp of the CUDA kernels.
-TILE_RAYS = 32
-#: Most clusters in a warp's list; a warp that enters more walks all K
-#: in index order (the JAX package's overflow tiles, ``_list_cap``).
-LIST_CAP = 256
+assert SUB_TRIS == STAGE_ROWS
 #: The scene-box cap's scale and offset, as the float32 values the JAX
 #: package multiplies and adds.
 _CAP_SCALE = float(np.float32(1.0001))
@@ -91,73 +88,21 @@ def scene_tcap(clus_rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> tor
     return torch.where(miss, 0.0, (tf.double() * _CAP_SCALE + _CAP_OFFSET).float())
 
 
-def _by_warp(x: torch.Tensor, fill) -> torch.Tensor:
-    """[R, ...] per ray -> [W, TILE_RAYS, ...], the last warp padded."""
-    pad = (-x.shape[0]) % TILE_RAYS
-    if pad:
-        x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
-    return x.reshape(-1, TILE_RAYS, *x.shape[1:])
-
-
-def live_rays(d, bound) -> torch.Tensor:
-    """The rays that walk: a positive bound and a non-zero direction."""
-    return (bound > 0.0) & (d != 0.0).any(dim=-1)
-
-
-def warp_lists(clus_rows, o, d, bound):
-    """Each warp's front-to-back cluster list. A cluster is on it when a
-    live ray of the warp enters its box before the ray's ``bound``; its key
-    is the least entry distance of those rays. Returns (ids [W, K]: the
-    clusters sorted by (key, id), the entered ones first; keys [W, K] in
-    that order, +inf past the entered ones; count [W] of entered)."""
-    inside, tn = slab(clus_rows[:, 0:3], clus_rows[:, 3:6], o[:, None], safe_inv_dir(d)[:, None],
-                      bound[:, None])
-    inside &= live_rays(d, bound)[:, None]
-    key = _by_warp(torch.where(inside, tn, math.inf), math.inf).amin(dim=1)
-    keys, ids = torch.sort(key, dim=1, stable=True)
-    return ids, keys, _by_warp(inside, False).any(dim=1).sum(dim=1)
-
-
-def _subblock_hits(geom_rows, o, d, first):
-    """Möller-Trumbore of each ray against the SUB_TRIS rows from its
-    ``first`` row: (t [n, SUB_TRIS], +inf past the last row; u; v; the
-    count of rows each ray tests)."""
-    n_rows = geom_rows.shape[0]
-    j = first[:, None] + torch.arange(SUB_TRIS, device=first.device)
-    valid = j < n_rows
-    r = geom_rows[j.clamp(max=n_rows - 1)]
-    t, u, v, _ = ray_triangle_edges(o[:, None], d[:, None], r[..., 0:3], r[..., 3:6],
-                                    r[..., 6:9])
-    return torch.where(valid, t, math.inf), u, v, valid.sum(dim=-1, dtype=torch.int32)
-
-
 def _walk(clus_rows, sub_rows, geom_rows, o, d, best, walking, work, on_subblock, list_cap):
     """The warp walk shared by both plain versions. ``best`` [R] is the
     slab tests' bound, updated in place by ``on_subblock(ids, first)``
     (the rays that entered a sub-block, and its first row per ray), which
     also clears ``walking`` [R] (the live rays) for rays that leave the
-    walk. ``work`` [R, 2] (optional) counts box tests and triangle tests."""
+    walk. ``work`` [R, 2] or [R, 3] (optional) counts box tests and
+    triangle tests (``count_tests``)."""
     inv = safe_inv_dir(d)
-    n_clusters = clus_rows.shape[0]
     n_rows = geom_rows.shape[0]
     ids, keys, count = warp_lists(clus_rows, o, d, best)
     if work is not None:
-        work[walking, 0] += n_clusters
-    overflow = count > list_cap
-    steps = torch.where(overflow, n_clusters, count)
-    warp = torch.arange(o.shape[0], device=o.device) // TILE_RAYS
-    on = steps > 0
-    for step in range(int(steps.max()) if steps.numel() else 0):
-        # the stop: a sorted list's key past the warp's largest best t
-        mx = _by_warp(torch.where(walking, best, -math.inf), -math.inf).amax(dim=1)
-        on &= (step < steps) & (mx > -math.inf) & (overflow | (keys[:, step] <= mx))
-        if not bool(on.any()):
-            break
-        k_warp = torch.where(overflow, step, ids[:, step])
-        rays = (walking & on[warp]).nonzero()[:, 0]
+        work[walking, 0] += clus_rows.shape[0]
+    for rays, k in warp_steps(best, walking, ids, keys, count, list_cap):
         if work is not None:
             work[rays, 0] += 1
-        k = k_warp[warp[rays]]
         box = clus_rows[k]
         inside = slab(box[:, 0:3], box[:, 3:6], o[rays], inv[rays], best[rays])[0]
         rays, k = rays[inside], k[inside]
@@ -181,7 +126,8 @@ def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=
     """Plain version of kernel 5: (t, tri, u, v) over o's batch shape.
     t starts at ``tcap`` and stays there on a miss; tri = -1 on a miss.
     ``work`` [R, 2] int32 (optional) accumulates each ray's box tests and
-    triangle tests."""
+    triangle tests; [R, 3] also the tests whose first half passes
+    (``front_passes``)."""
     batch = o.shape[:-1]
     of = o.reshape(-1, 3)
     df = d.reshape(-1, 3)
@@ -191,19 +137,9 @@ def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=
     bv = torch.zeros_like(best)
 
     def on_subblock(ids, first):
-        t, u, v, n = _subblock_hits(geom_rows, of[ids], df[ids], first)
-        if work is not None:
-            work[ids, 1] += n
-        j = torch.argmin(t, dim=-1, keepdim=True)
-        tj = t.gather(-1, j)[:, 0]
-        row = (first + j[:, 0]).to(torch.int32)
-        bt, bi = best[ids], btri[ids]
-        better = (tj < bt) | ((tj == bt) & (bi >= 0) & (row < bi))
-        w = ids[better]
-        best[w] = tj[better]
-        btri[w] = row[better]
-        bu[w] = u.gather(-1, j)[better, 0]
-        bv[w] = v.gather(-1, j)[better, 0]
+        hits = row_hits(geom_rows, of[ids], df[ids], first, geom_rows.shape[0])
+        count_tests(work, ids, hits[3], hits[4])
+        keep_closest(hits, ids, first, best, btri, bu, bv)
 
     _walk(clus_rows, sub_rows, geom_rows, of, df, best, live_rays(df, best), work, on_subblock,
           list_cap)
@@ -224,15 +160,8 @@ def stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, t_max, work=
     walking = live_rays(df, tm)
 
     def on_subblock(ids, first):
-        t, _, _, n = _subblock_hits(geom_rows, of[ids], df[ids], first)
-        hit = t < tm[ids, None]
-        any_hit = hit.any(dim=-1)
-        if work is not None:
-            tested = torch.where(any_hit, hit.to(torch.int32).argmax(dim=-1) + 1, n)
-            work[ids, 1] += tested.to(torch.int32)
-        done = ids[any_hit]
-        occ[done] = True
-        walking[done] = False
+        first_hits(row_hits(geom_rows, of[ids], df[ids], first, geom_rows.shape[0]), ids, tm,
+                   occ, walking, work)
 
     _walk(clus_rows, sub_rows, geom_rows, of, df, tm, walking, work, on_subblock, list_cap)
     return occ.reshape(batch)

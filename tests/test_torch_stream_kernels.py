@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch_port_arrays  # noqa: F401  (one torch thread per test process)
+from torch_port_arrays import coherent_rays, tie_scene
 
 from strolle_tpu.ops.pallas import stream_kernels as jsk
 from strolle_tpu.ops.pallas.cluster_kernels import CLUSTER_TRIS, clusterize_bvh
@@ -153,25 +153,6 @@ def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
         sk.clusterize_bvh(None, 10)
 
 
-def _coherent_rays(rows):
-    """8 warps of 32 rays, each warp from one origin 9 units off a soup
-    triangle's face in a narrow cone toward its centroid: every ray hits
-    near there, so the front-to-back walk's stop fires."""
-    rs = np.random.RandomState(5)
-    rows = rows.numpy()
-    o, d = [], []
-    for j in rs.choice(rows.shape[0] // 2, 8, replace=False):
-        v0, e1, e2 = rows[j, 0:3], rows[j, 3:6], rows[j, 6:9]
-        n = np.cross(e1, e2)
-        n /= np.linalg.norm(n)
-        c = v0 + (e1 + e2) / 3.0
-        origin = c + 9.0 * n
-        aim = c + 0.02 * rs.uniform(-1.0, 1.0, (sk.TILE_RAYS, 1)) * (e1 + e2) - origin
-        o.append(np.repeat(origin[None], sk.TILE_RAYS, axis=0))
-        d.append(aim / np.linalg.norm(aim, axis=-1, keepdims=True))
-    return np.concatenate(o).astype(np.float32), np.concatenate(d).astype(np.float32)
-
-
 def _plain_pair(clus, trows, o, d, list_cap, t_max=None):
     """Kernel 5's or 6's plain version (with t_max) under ``list_cap``,
     with its per-ray work."""
@@ -195,7 +176,7 @@ def test_warp_walk_equals_index_order_walk(soup, rays):
     bit for bit; the index-order walk re-tests every cluster (4 list tests,
     4 re-tests and 8 for each entered cluster)."""
     _, _, _, clus, trows = soup
-    o, d = (_t(x) for x in (_ray_set(rays) if rays != "coherent" else _coherent_rays(trows)))
+    o, d = (_t(x) for x in (_ray_set(rays) if rays != "coherent" else coherent_rays(trows)))
     for t_max in (None, 2.5, np.inf):
         got, _ = _plain_pair(clus, trows, o, d, sk.LIST_CAP, t_max)
         want, iwork = _plain_pair(clus, trows, o, d, 0, t_max)
@@ -206,33 +187,8 @@ def test_warp_walk_equals_index_order_walk(soup, rays):
             assert ((iwork[live, 0] - 8) % 8 == 0).all()
 
 
-def _tie_scene():
-    """Two clusters that both hold one triangle T (rows 5 and 263), in the
-    plane x = 0. The rest lies off the rays' paths or behind T: cluster 0
-    reaches to x = -1 (row 0, far above) and x = 12, cluster 1 spans
-    x = -2.5 .. 0, so rays from x = -3 toward T meet cluster 1's box first."""
-    rs = np.random.RandomState(3)
-    tri = np.array([[0.0, -0.5, -0.5], [0.0, 0.5, -0.5], [0.0, 0.0, 0.5]], np.float32)
-    small = rs.uniform(0.0, 0.2, (2 * sk.CLUSTER_TRIS, 3, 3)).astype(np.float32)
-    pos = np.empty_like(small)
-    pos[:256] = small[:256] + rs.uniform([10, -1, -1], [12, 1, 1], (256, 1, 3))
-    pos[256:] = small[256:] + rs.uniform([-2.5, 3, -1], [-0.7, 5, 1], (256, 1, 3))
-    pos[0] = small[0] + np.array([-1.0, 5.0, 0.0], np.float32)
-    pos[5] = pos[263] = tri
-    positions = torch.tensor(pos)
-    rows = torch.cat([positions[:, 0], positions[:, 1] - positions[:, 0],
-                      positions[:, 2] - positions[:, 0], torch.zeros(pos.shape[0], 19)], dim=-1)
-    return sk.clusterize_bvh(None, pos.shape[0], positions), rows
-
-
 def test_exact_tie_goes_to_the_lowest_row_in_either_order():
-    clus, rows = _tie_scene()
-    rs = np.random.RandomState(4)
-    n = 2 * sk.TILE_RAYS
-    o = np.stack([np.full(n, -3.0), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.2, 0.2, n)], -1)
-    aim = np.stack([np.zeros(n), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.3, 0.1, n)], -1) - o
-    o, d = _t(o.astype(np.float32)), _t((aim / np.linalg.norm(aim, axis=-1,
-                                                               keepdims=True)).astype(np.float32))
+    clus, rows, o, d = tie_scene()
     ids, _, count = sk.warp_lists(clus, o, d, sk.scene_tcap(clus, o, d))
     # the front-to-back walk meets row 263's cluster first
     assert (count == 2).all() and (ids[:, 0] == 1).all()
@@ -246,7 +202,7 @@ def test_exact_tie_goes_to_the_lowest_row_in_either_order():
 
 def test_warp_lists_sorted_and_stop_skips_no_closer_hit(soup):
     _, _, _, clus, trows = soup
-    o, d = (_t(x) for x in _coherent_rays(trows))
+    o, d = (_t(x) for x in coherent_rays(trows))
     tcap = sk.scene_tcap(clus, o, d)
     ids, keys, count = sk.warp_lists(clus, o, d, tcap)
     # the entered clusters, sorted by (key, id); the rest after them

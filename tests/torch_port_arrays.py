@@ -1,7 +1,8 @@
 """Helpers of the port's tests: JAX package objects as the nested numpy
 dicts that strolle_tpu_torch.convert takes, a smooth-normal Cornell
 built the same way in both packages, the JAX tests' triangle soup in
-both packages, and one torch thread per test process."""
+both packages, the warp walks' coherent rays and exact-tie scene, and
+one torch thread per test process."""
 
 import dataclasses
 import functools
@@ -80,3 +81,77 @@ def soup_rays(name: str):
 def tt(a) -> torch.Tensor:
     """A numpy or JAX array as a CPU tensor."""
     return torch.tensor(np.asarray(a))
+
+
+def coherent_rays(rows):
+    """8 warps of 32 rays, each warp from one origin 9 units off a soup
+    triangle's face ([T', 28] ``rows``) in a narrow cone toward its
+    centroid: every ray hits near there, so the front-to-back walk's stop
+    fires."""
+    from strolle_tpu_torch.ops.kernels.cluster_kernels import TILE_RAYS
+
+    rs = np.random.RandomState(5)
+    rows = rows.numpy()
+    o, d = [], []
+    for j in rs.choice(rows.shape[0] // 2, 8, replace=False):
+        v0, e1, e2 = rows[j, 0:3], rows[j, 3:6], rows[j, 6:9]
+        n = np.cross(e1, e2)
+        n /= np.linalg.norm(n)
+        c = v0 + (e1 + e2) / 3.0
+        origin = c + 9.0 * n
+        aim = c + 0.02 * rs.uniform(-1.0, 1.0, (TILE_RAYS, 1)) * (e1 + e2) - origin
+        o.append(np.repeat(origin[None], TILE_RAYS, axis=0))
+        d.append(aim / np.linalg.norm(aim, axis=-1, keepdims=True))
+    return np.concatenate(o).astype(np.float32), np.concatenate(d).astype(np.float32)
+
+
+def tie_scene():
+    """Two clusters that both hold one triangle T (rows 5 and 263), in the
+    plane x = 0, as (cluster rows, [T', 28] rows), and 2 warps of rays from
+    x = -3 toward T. The rest lies off the rays' paths or behind T:
+    cluster 0 reaches to x = -1 (row 0, far above) and x = 12, cluster 1
+    spans x = -2.5 .. 0, so the rays meet cluster 1's box first."""
+    return _tie_scene(np.float32(0.0), -1.0, None)
+
+
+def tie_scene_on_entry_face():
+    """As ``tie_scene``, T in the plane x = c (c and T's other coordinates
+    not round numbers) and cluster 0's box beginning at x = c: T lies on
+    the face through which the rays enter the lower copy's cluster, and
+    the slab's t_near there rounds past T's t on some of the rays."""
+    rs = np.random.RandomState(6)
+    c = np.float32(rs.uniform(0.2, 0.6))
+    yz = rs.uniform(-0.6, 0.6, (3, 2)).astype(np.float32)
+    return _tie_scene(c, float(c), yz)
+
+
+def _tie_scene(c, row0_x, yz):
+    from strolle_tpu_torch.ops.kernels.cluster_kernels import (
+        CLUSTER_TRIS, TILE_RAYS, clusterize_bvh,
+    )
+
+    rs = np.random.RandomState(3)
+    if yz is None:
+        tri = np.array([[0.0, -0.5, -0.5], [0.0, 0.5, -0.5], [0.0, 0.0, 0.5]], np.float32)
+    else:
+        tri = np.concatenate([np.full((3, 1), c, np.float32), yz], axis=1)
+    small = rs.uniform(0.0, 0.2, (2 * CLUSTER_TRIS, 3, 3)).astype(np.float32)
+    pos = np.empty_like(small)
+    pos[:256] = small[:256] + rs.uniform([10, -1, -1], [12, 1, 1], (256, 1, 3))
+    pos[256:] = small[256:] + rs.uniform([-2.5, 3, -1], [-0.7, 5, 1], (256, 1, 3))
+    pos[0] = small[0] + np.array([row0_x, 5.0, 0.0], np.float32)
+    pos[5] = pos[263] = tri
+    positions = torch.tensor(pos)
+    rows = torch.cat([positions[:, 0], positions[:, 1] - positions[:, 0],
+                      positions[:, 2] - positions[:, 0], torch.zeros(pos.shape[0], 19)], dim=-1)
+    rs = np.random.RandomState(4)
+    n = 2 * TILE_RAYS
+    o = np.stack([np.full(n, -3.0), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.2, 0.2, n)], -1)
+    if yz is None:
+        aim = np.stack([np.zeros(n), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.3, 0.1, n)], -1) - o
+    else:
+        # points inside T, by barycentric weights
+        aim = rs.dirichlet([1.0, 1.0, 1.0], n).astype(np.float32) @ tri - o
+    d = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    return (clusterize_bvh(None, pos.shape[0], positions), rows,
+            torch.tensor(o.astype(np.float32)), torch.tensor(d.astype(np.float32)))
