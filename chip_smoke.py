@@ -4,8 +4,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    strolle_tpu_torch/csrc with one nvcc command, and prints kernels A's,
-   B's, 4's, C's, 8's and 9's instructions per ray-triangle test as
-   compiled (where the toolkit has cuobjdump).
+   B's, 4's, C's and 8-11's instructions per ray-triangle test as
+   compiled, and 10's and 11's per node visit (where the toolkit has
+   cuobjdump).
 2. Holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes: kernels A and B (brute closest hit / any hit)
    on 800x608 Cornell primary rays and on seeded random rays, and A and
@@ -48,7 +49,10 @@ Run from the root of the repository:  python3 chip_smoke.py
    of frames 6-17 is within 15% of a 64-sample depth-1 sky reference.
    Then holds kernels 8-11 (the cluster and BVH kernels) against their
    plain versions on the same ray sets, with their test counts, and
-   kernel 10's triangles against the torch BVH traversal; kernels 8 and
+   kernel 10's triangles against the torch BVH traversal; kernels 10 and
+   11 also on a chain of 64 nodes that overflows their 48-id stack (the
+   clamp) and on 1,000 primaries and light shadow rays (a ray count that
+   is no multiple of 32 and fills less than one wave); kernels 8 and
    9 also on their overflow path (list caps 0 and 4, as 5 and 6), with
    the index-order walk's tests per ray printed beside the front-to-back
    walk's (kernel 8 must test fewer triangles per primary front to
@@ -85,9 +89,10 @@ Run from the root of the repository:  python3 chip_smoke.py
    bound (5, 6, 8-11) counts the fewest operations of the box and
    triangle tests that any of the walks counted here makes on the same
    rays (a triangle test's second half only where its first passes, as
-   for A, B and 4); its own walk's count gives walk_bound_ms beside it. Kernel 7 alone in both modes on
-   the Cornell frame's inputs, and the DI and GI stages on both scenes
-   with the probe switch off, on, on, off.
+   for A, B and 4); its own walk's count gives walk_bound_ms beside it,
+   and for 10 and 11 its SASS counts issue_floor_ms. Kernel 7 alone in
+   both modes on the Cornell frame's inputs, and the DI and GI stages on
+   both scenes with the probe switch off, on, on, off.
 
 Prints a "kernels" JSON line and, last, {"ok": true, "device": ...}.
 Any failed check raises: the script then exits non-zero and prints no
@@ -97,6 +102,7 @@ not beside it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -132,11 +138,20 @@ DG_RT_TOLERANCE = 0.15
 #: One reference sample of the dungeon without its BVH (kernels A and B
 #: over all 8,393 rows) at this reduced size.
 FLAT_WIDTH, FLAT_HEIGHT = 200, 152
+#: Kernels 10 and 11 on a chain of DEEP_TREE_DEPTH nodes (the stack
+#: clamp at bvh_kernels.MAX_STACK - 1) and on RAGGED_RAYS rays (the
+#: grid's ragged end: no multiple of 32, less than one wave of the card).
+DEEP_TREE_DEPTH, DEEP_TREE_RAYS = 64, 384
+RAGGED_RAYS = 1000
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 #: tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+#: Its streaming multiprocessors (4 warp schedulers each, one warp
+#: instruction a clock each) and its boost clock.
+H100_SMS = 132
+SM_CLOCK_HZ = 1.98e9
 #: fp32 operations of one ray-triangle test (an fma counts 2), in the
 #: two parts a kernel may stop between: Möller-Trumbore 46, of which 24
 #: reach the determinant's test and u (pvec 9, det 5, the reciprocal 1,
@@ -242,16 +257,20 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
 
 #: The kernels whose instructions per ray-triangle test sass_per_test
 #: counts: A, B, 4, C in its default (flat, no_metal) variant, and the
-#: timed variants of 8 and 9.
+#: timed variants of 8, 9, 10 and 11 (10 and 11 per node visit too).
 SASS_KERNELS = {"A": "closest_brute_kernel", "B": "anyhit_brute_kernel",
                 "4": "surface_closest_kernel", "C": "ref_megakernelILb1ELb1E",
-                "8": "cluster_surface_kernelILb0E", "9": "cluster_anyhit_kernelILb0E"}
+                "8": "cluster_surface_kernelILb0E", "9": "cluster_anyhit_kernelILb0E",
+                "10": "bvh_surface_kernelILb0E", "11": "bvh_anyhit_kernelILb0E"}
+#: The BVH kernels, which read their leaf rows from global memory.
+BVH_SASS = ("10", "11")
 
 
 def sass_per_test(lib) -> dict | None:
-    """Instructions per ray-triangle test of kernels A, B, 4, C, 8 and 9 as
-    compiled, from ``cuobjdump -sass`` of the built library (``sass_loops``).
-    None where the toolkit has no cuobjdump."""
+    """Instructions per ray-triangle test of kernels A, B, 4, C, 8-11 (and
+    per node visit of 10 and 11) as compiled, from ``cuobjdump -sass`` of
+    the built library (``sass_loops``). None where the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -259,17 +278,11 @@ def sass_per_test(lib) -> dict | None:
                                      timeout=300, check=True).stdout)
 
 
-def sass_loops(sass: str) -> dict:
-    """For each kernel of SASS_KERNELS, each innermost loop over rows in
-    ``sass`` (a backward branch whose body reads each row it tests with
-    three shared-memory loads): the instructions of its body (all paths,
-    the division's rare slow path included) over the rows a pass tests;
-    those up to a warp's any-vote and its branch (what a row costs where
-    the vote skips the rest); for the first row of the body, the
-    instructions from its first load to each conditional branch that
-    leaves the row (the branch included: what a row costs where a warp
-    takes that exit) and to the row's end; and the shared-memory loads by
-    kind."""
+_BRANCH = re.compile(r"(@!?U?P\w+\s+)?BRA\S*\s+(?:!?U?P\w+,\s*)?`?\(?0x([0-9a-f]+)")
+
+
+def sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` output -> {function name: [(address, instruction)]}."""
     fns: dict[str, list] = {}
     cur = None
     for line in sass.splitlines():
@@ -280,39 +293,161 @@ def sass_loops(sass: str) -> dict:
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
         if m and cur is not None:
             cur.append((int(m.group(1), 16), m.group(2).strip()))
-    branch = re.compile(r"(@!?U?P\w+\s+)?BRA\S*\s+(?:!?U?P\w+,\s*)?`?\(?0x([0-9a-f]+)")
-    load = re.compile(r"(?:@!?U?P\w+\s+)?(LDS(?:\.\w+)*)\b")
+    return fns
+
+
+def loop_spans(ins) -> list:
+    """The loops of one function: (first, last address) of each backward
+    branch's span, the spans of one loop head merged."""
+    heads: dict[int, int] = {}
+    for addr, text in ins:
+        m = _BRANCH.search(text)
+        if m and int(m.group(2), 16) < addr:
+            lo = int(m.group(2), 16)
+            heads[lo] = max(heads.get(lo, addr), addr)
+    return sorted(heads.items())
+
+
+def sass_loops(sass: str) -> dict:
+    """For each kernel of SASS_KERNELS: ``row_loops``, or ``walk_loops``
+    for the BVH kernels."""
+    fns = sass_functions(sass)
     result = {}
     for key, pattern in SASS_KERNELS.items():
         ins = next(v for name, v in fns.items() if pattern in name)
-        spans = [(int(m.group(2), 16), addr) for addr, text in ins
-                 if (m := branch.search(text)) and int(m.group(2), 16) < addr]
-        loops = []
-        for lo, hi in spans:
-            if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
-                continue  # not innermost
-            body = [(a, t) for a, t in ins if lo <= a <= hi]
-            lds = [(j, m.group(1)) for j, (_, t) in enumerate(body) if (m := load.match(t))]
-            if not lds or len(lds) % 3:
-                continue
-            rows = len(lds) // 3
-            votes = [j for j, (_, t) in enumerate(body) if "VOTE.ANY" in t]
-            # the first row: from its first load to the next row's (or the
-            # loop's end); an exit jumps to within 4 instructions of that
-            first = lds[0][0]
-            end = lds[3][0] if rows > 1 else len(body) - 1
-            end_addr = body[end][0]
-            exits = [j - first + 1 for j in range(first, end)
-                     if (m := branch.match(body[j][1])) and m.group(1)
-                     and end_addr - 0x40 <= int(m.group(2), 16) <= end_addr]
-            loops.append({"instructions": len(body), "rows": rows,
-                          "per_test": len(body) / rows,
-                          "before_vote": (votes[0] + 2) / rows if votes else None,
-                          "row_exits": exits, "row_end": end - first,
-                          "loads": {k: [n for _, n in lds].count(k)
-                                    for k in sorted({n for _, n in lds})}})
-        result[key] = loops
+        result[key] = walk_loops(ins) if key in BVH_SASS else row_loops(ins)
     return result
+
+
+def row_loops(ins) -> list:
+    """Each innermost loop over rows in ``ins`` (a backward branch whose
+    body reads each row it tests with three shared-memory loads): the
+    instructions of its body (all paths, the division's rare slow path
+    included) over the rows a pass tests; those up to a warp's any-vote
+    and its branch (what a row costs where the vote skips the rest); for
+    the first row of the body, the instructions from its first load to
+    each conditional branch that leaves the row (the branch included: what
+    a row costs where a warp takes that exit) and to the row's end; and
+    the shared-memory loads by kind."""
+    load = re.compile(r"(?:@!?U?P\w+\s+)?(LDS(?:\.\w+)*)\b")
+    spans = [(int(m.group(2), 16), addr) for addr, text in ins
+             if (m := _BRANCH.search(text)) and int(m.group(2), 16) < addr]
+    loops = []
+    for lo, hi in spans:
+        if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+            continue  # not innermost
+        body = [(a, t) for a, t in ins if lo <= a <= hi]
+        lds = [(j, m.group(1)) for j, (_, t) in enumerate(body) if (m := load.match(t))]
+        if not lds or len(lds) % 3:
+            continue
+        rows = len(lds) // 3
+        votes = [j for j, (_, t) in enumerate(body) if "VOTE.ANY" in t]
+        # the first row: from its first load to the next row's (or the
+        # loop's end); an exit jumps to within 4 instructions of that
+        first = lds[0][0]
+        end = lds[3][0] if rows > 1 else len(body) - 1
+        end_addr = body[end][0]
+        exits = [j - first + 1 for j in range(first, end)
+                 if (m := _BRANCH.match(body[j][1])) and m.group(1)
+                 and end_addr - 0x40 <= int(m.group(2), 16) <= end_addr]
+        loops.append({"instructions": len(body), "rows": rows,
+                      "per_test": len(body) / rows,
+                      "before_vote": (votes[0] + 2) / rows if votes else None,
+                      "row_exits": exits, "row_end": end - first,
+                      "loads": {k: [n for _, n in lds].count(k)
+                                for k in sorted({n for _, n in lds})}})
+    return loops
+
+
+def shortest_lap(ins, lo: int, hi: int) -> int | None:
+    """The fewest instructions a thread issues going once around the loop
+    [lo, hi] of ``ins``: from its head at ``lo`` to its backward branch at
+    ``hi``, through branches that stay inside the loop (a call's body not
+    counted)."""
+    index = {a: j for j, (a, _) in enumerate(ins)}
+    first, last = index[lo], index[hi]
+    dist = {first: 1}
+    todo = collections.deque([first])
+    while todo:
+        j = todo.popleft()
+        if j == last:
+            return dist[j]
+        text = ins[j][1]
+        nxt = []
+        m = _BRANCH.search(text)
+        if m and lo <= int(m.group(2), 16) <= hi:
+            nxt.append(index.get(int(m.group(2), 16)))
+        always = (m and not m.group(1) and not re.search(r"BRA\S*\s+!?U?P\w+,", text)) or (
+            text.startswith(("EXIT", "RET", "BRX", "JMX")))
+        if not always and j < last:
+            nxt.append(j + 1)
+        for k in nxt:
+            if k is not None and k not in dist:
+                dist[k] = dist[j] + 1
+                todo.append(k)
+    return None
+
+
+def walk_loops(ins) -> dict:
+    """Kernel 10's or 11's walk in ``ins``: its node loop, the loop whose
+    nested loops are all innermost (the loops over a leaf's rows). The
+    node loop's instructions outside the leaf loops (all paths: the pop,
+    the node's loads, two slab tests, the leaf dispatch, the pushes, the
+    loop's own vote) and the fewest a visit issues (``shortest_lap``: no
+    leaf tested), and its memory instructions by kind (LDG: global, LDS
+    and STS: shared, LDL and STL: local); each leaf loop's instructions per
+    row (a row's v0, e1 and e2: three loads of 16 bytes, or nine of 4), all
+    paths and fewest."""
+    spans = loop_spans(ins)
+
+    def nested(s):
+        return [t for t in spans if s[0] <= t[0] and t[1] <= s[1] and t != s]
+
+    node = next((s for s in spans if nested(s) and not any(nested(t) for t in nested(s))),
+                None)
+    if node is None:
+        return {"node_visit": None, "node_visit_min": None, "node_memory": None,
+                "leaf_loops": [], "per_test": None, "per_test_min": None}
+    leaves = nested(node)
+    body = [(a, t) for a, t in ins if node[0] <= a <= node[1]
+            and not any(lo <= a <= hi for lo, hi in leaves)]
+    mem = re.compile(r"(?:@!?U?P\w+\s+)?((?:LDG|LDS|STS|LDL|STL)(?:\.\w+)*)\b")
+
+    def kinds(instrs):
+        found = [m.group(1) for _, t in instrs if (m := mem.match(t))]
+        return {k: found.count(k) for k in sorted(set(found))}
+
+    loops = []
+    for lo, hi in leaves:
+        leaf = [(a, t) for a, t in ins if lo <= a <= hi]
+        loads = kinds(leaf)
+        ldg = [(k, n) for k, n in loads.items() if k.startswith("LDG")]
+        # three loads a row where they are 16 bytes wide (the last one may
+        # be cut to the 4 bytes of e2.z), nine of 4 bytes in the whole test
+        per_row = 3 if any(".128" in k for k, _ in ldg) else 9
+        rows = max(1, sum(n for _, n in ldg) // per_row)
+        lap = shortest_lap(ins, lo, hi)
+        loops.append({"instructions": len(leaf), "rows": rows, "per_test": len(leaf) / rows,
+                      "per_test_min": None if lap is None else lap / rows, "loads": loads})
+    lap = shortest_lap(ins, *node)
+    mins = [lp["per_test_min"] for lp in loops if lp["per_test_min"] is not None]
+    return {"node_visit": len(body), "node_visit_min": lap, "node_memory": kinds(body),
+            "leaf_loops": loops,
+            "per_test": statistics.mean(lp["per_test"] for lp in loops) if loops else None,
+            "per_test_min": min(mins) if mins else None}
+
+
+def issue_floor_ms(work: dict, walk: dict | None) -> float | None:
+    """The least time the card could issue a BVH kernel's walk in, from its
+    SASS counts (``walk_loops``): node visits (two box tests each) times
+    the fewest instructions a visit issues plus triangle tests times the
+    fewest a test issues, over 32 lanes a warp instruction, 4 issued per
+    clock on each of 132 SMs at SM_CLOCK_HZ. None without the counts."""
+    if not walk or walk["node_visit_min"] is None or walk["per_test_min"] is None:
+        return None
+    instructions = (work["box_tests"] / 2 * walk["node_visit_min"]
+                    + work["triangle_tests"] * walk["per_test_min"])
+    return instructions / 32 / (4 * H100_SMS * SM_CLOCK_HZ) * 1e3
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -1031,50 +1166,113 @@ def walk_mismatch(got, want, anyhit: bool) -> tuple[int, float]:
     return int(differ.sum()), e
 
 
+def hold_walk(x: dict, what: str, device, all_may_hit: bool = False) -> tuple:
+    """Kernel 8, 9, 10 or 11 on prepared inputs ``x`` through its wrapper
+    against its plain version, every output bit-equal, and its counting
+    variant's box and triangle tests against the plain version's on every
+    ray (neither may hit or occlude every ray unless ``all_may_hit``);
+    prints both and returns the max abs error and the outputs."""
+    kname, _, anyhit, _, _ = WALK_KERNELS[x["key"]]
+    o, d, t_max = x["o"], x["d"], x["t_max"]
+    n = o.numel() // 3
+    wrapper = getattr(walk_module(x["key"]), kname)
+    if anyhit:
+        got = (wrapper(x["table"], x["rows"], o, d, t_max),)
+    else:
+        g = wrapper(x["table"], x["rows"], o, d)
+        got = (g["t"], g["tri"], g["normal"], g["uv"], g["mat_id"])
+    work = torch.zeros((n, 2), dtype=torch.int32, device=device)
+    pwork = torch.zeros_like(work)
+    walk_launch(x, work)
+    want = walk_plain(x, pwork)
+    torch.cuda.synchronize()
+    # The same walk, slab tests, fused multiply-adds and resolve: every
+    # output bit-equal, normals included (a correctly rounded sqrt and
+    # divide on both sides); allow 1e-5 of rays for the plain version's
+    # float64 emulation of fma (double rounding near a float32 midpoint).
+    mism, e = walk_mismatch(got, want, anyhit)
+    rate = got[0].float().mean().item() if anyhit else (got[1] >= 0).float().mean().item()
+    wmism = int((work != pwork).any(-1).sum())
+    print(f"{what} vs plain: rays differing {mism}, max err {e:.3g}, work mismatches "
+          f"{wmism}, box tests {int(work[:, 0].sum())}, triangle tests "
+          f"{int(work[:, 1].sum())}, {'occluded' if anyhit else 'hit'} rate {rate:.3f}",
+          flush=True)
+    check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+    check(wmism <= 1e-5 * n, f"{what}: test counts differ on {wmism} rays")
+    check(anyhit or e <= 1e-5, f"{what}: fields differ by {e}")
+    check(rate > 0.0 and (rate < 1.0 or all_may_hit), f"{what}: degenerate")
+    return e, got
+
+
+def deep_tree(device, depth: int = DEEP_TREE_DEPTH, n_rays: int = DEEP_TREE_RAYS):
+    """A synthetic [N, 16] node table whose walk overflows the stack: a
+    chain of ``depth`` nodes, each with both child boxes the cube [-1, 1]^3,
+    child 0 the next node of the chain (near: the entry distances tie) and
+    child 1 a side node (far, pushed first), whose two children are leaves
+    of two seeded triangles each ([T', 28] rows); the chain ends in a leaf.
+    Every ray that enters the cube pushes a side node per level, so the
+    stack pointer reaches the clamp at MAX_STACK - 1 and the pushes there
+    overwrite each other. Rays from a sphere of radius 3 toward points of
+    the cube (a tenth from inside it), t_max in [0.5, 6). Returns (nodes,
+    rows, o, d, t_max)."""
+    rs = np.random.RandomState(23)
+    n_side = depth
+    n_rows = 4 * n_side + 2
+    rows = np.zeros((n_rows, 28), np.float32)
+    v0 = rs.uniform(-0.9, 0.9, (n_rows, 3))
+    rows[:, 0:3] = v0
+    rows[:, 3:6] = rs.uniform(-0.5, 0.5, (n_rows, 3))
+    rows[:, 6:9] = rs.uniform(-0.5, 0.5, (n_rows, 3))
+    nrm = rs.normal(size=(n_rows, 3, 3))
+    rows[:, 9:18] = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).reshape(n_rows, 9)
+    rows[:, 18:24] = rs.uniform(0.0, 1.0, (n_rows, 6))
+    rows[:, 24] = rs.randint(0, 5, n_rows)
+    nodes = np.zeros((2 * depth, 16), np.float32)
+    box = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
+    nodes[:, 0:12] = box + box
+    for i in range(depth):
+        last = i + 1 == depth
+        nodes[i, 12:16] = [-(4 * n_side + 1) if last else i + 1, depth + i, 2 if last else 0, 0]
+        nodes[depth + i, 12:16] = [-(4 * i + 1), -(4 * i + 3), 2, 2]
+    u = rs.normal(size=(n_rays, 3))
+    o = 3.0 * u / np.linalg.norm(u, axis=-1, keepdims=True)
+    inside = rs.uniform(size=n_rays) < 0.1
+    o[inside] = rs.uniform(-0.95, 0.95, (int(inside.sum()), 3))
+    d = rs.uniform(-0.9, 0.9, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = rs.uniform(0.5, 6.0, n_rays)
+    return tuple(torch.tensor(np.asarray(a, np.float32), device=device).contiguous()
+                 for a in (nodes, rows, o, d, t_max))
+
+
+def ragged(o, d, t_max, n: int = RAGGED_RAYS):
+    """``n`` rays spread over a set (every k-th): a count that is no
+    multiple of 32 and fills less than one resident wave of the card."""
+    step = max(1, (o.numel() // 3) // n)
+    o, d = (x.reshape(-1, 3)[::step][:n].contiguous() for x in (o, d))
+    return o, d, None if t_max is None else t_max.reshape(-1)[::step][:n].contiguous()
+
+
 def compare_walk_kernels(scene, sets: dict, device) -> dict:
     """Kernels 8-11 against their plain versions on the dungeon's ray sets
     (the ones kernels 5 and 6 are held on), launched through their
     wrappers, and their counting variants' box and triangle tests against
     the plain versions'; kernel 10's tri against the torch BVH traversal
-    on the primaries. Returns the max abs error per kernel."""
+    on the primaries. Kernels 10 and 11 also on ``deep_tree`` (the stack
+    clamp) and on RAGGED_RAYS primaries and light shadow rays (the grid's
+    ragged end). Returns the max abs error per kernel."""
     from strolle_tpu_torch.bvh.traverse import trace_closest_bvh
+    from strolle_tpu_torch.ops.kernels.bvh_kernels import MAX_STACK
 
     err = {}
     for name, (o, d, t_max) in sets.items():
         n = o.numel() // 3
-        for key, (kname, _, anyhit, _, _) in WALK_KERNELS.items():
+        for key, (_, _, anyhit, _, _) in WALK_KERNELS.items():
             if (anyhit and t_max is None) or (not anyhit and name not in ("primary", "random")):
                 continue
             x = walk_inputs(scene, key, o, d, t_max)
-            wrapper = getattr(walk_module(key), kname)
-            if anyhit:
-                got = (wrapper(x["table"], x["rows"], o, d, t_max),)
-            else:
-                g = wrapper(x["table"], x["rows"], o, d)
-                got = (g["t"], g["tri"], g["normal"], g["uv"], g["mat_id"])
-            work = torch.zeros((n, 2), dtype=torch.int32, device=device)
-            pwork = torch.zeros_like(work)
-            walk_launch(x, work)
-            want = walk_plain(x, pwork)
-            torch.cuda.synchronize()
-            what = f"kernel {key} ({name}, {n} rays)"
-            # The same walk, slab tests, fused multiply-adds and resolve:
-            # every output bit-equal, normals included (a correctly rounded
-            # sqrt and divide on both sides); allow 1e-5 of rays for the
-            # plain version's float64 emulation of fma (double rounding
-            # near a float32 midpoint).
-            mism, e = walk_mismatch(got, want, anyhit)
-            rate = got[0].float().mean().item() if anyhit else (got[1] >= 0).float().mean().item()
-            wmism = int((work != pwork).any(-1).sum())
-            print(f"{what} vs plain: rays differing {mism}, max err {e:.3g}, work mismatches "
-                  f"{wmism}, box tests {int(work[:, 0].sum())}, triangle tests "
-                  f"{int(work[:, 1].sum())}, {'occluded' if anyhit else 'hit'} rate {rate:.3f}",
-                  flush=True)
-            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
-            check(wmism <= 1e-5 * n, f"{what}: test counts differ on {wmism} rays")
-            check(anyhit or e <= 1e-5, f"{what}: fields differ by {e}")
-            check(rate > 0.0 and (rate < 1.0 or name in ("primary", "sun")),
-                  f"{what}: degenerate")
+            e, got = hold_walk(x, f"kernel {key} ({name}, {n} rays)", device,
+                               all_may_hit=name in ("primary", "sun"))
             if key == "10" and name == "primary":
                 tri_bvh = trace_closest_bvh(scene, o, d).tri
                 flips = int((tri_bvh != got[1]).sum())
@@ -1082,6 +1280,17 @@ def compare_walk_kernels(scene, sets: dict, device) -> dict:
                       f"{flips} rays", flush=True)
                 check(flips <= 1e-5 * n, f"kernel 10: tri differs from the traversal on {flips}")
             err[key] = max(err.get(key, 0.0), e)
+    nodes, rows, o, d, t_max = deep_tree(device)
+    for key in ("10", "11"):
+        x = dict(key=key, table=nodes, rows=rows, o=o, d=d, t_max=t_max if key == "11" else None)
+        what = (f"kernel {key} (a chain of {nodes.shape[0] // 2} nodes, stack clamped at "
+                f"{MAX_STACK - 1}, {o.shape[0]} rays)")
+        err[key] = max(err[key], hold_walk(x, what, device)[0])
+    for key, name in (("10", "primary"), ("11", "lights")):
+        ro, rd, rt = ragged(*sets[name])
+        x = walk_inputs(scene, key, ro, rd, rt)
+        what = f"kernel {key} ({ro.numel() // 3} {name} rays, the grid's ragged end)"
+        err[key] = max(err[key], hold_walk(x, what, device, all_may_hit=key == "10")[0])
     return err
 
 
@@ -1766,8 +1975,9 @@ def main() -> int:
             print("ptxas:", line.strip())
     print(f"build: {build_s:.1f} s ({len(cuda_lib.sources())} sources, one nvcc)", flush=True)
     sass = sass_per_test(cuda_lib.build())
-    print(f"SASS instructions per ray-triangle test (kernels A, B, 4; kernel C flat, no metal: "
-          f"closest hit, shadow): {sass}", flush=True)
+    print(f"SASS instructions per ray-triangle test (kernels A, B, 4, 8, 9; kernel C flat, no "
+          f"metal: closest hit, shadow; kernels 10 and 11 also per node visit): {sass}",
+          flush=True)
     t0 = time.perf_counter()
     native.library()
     native_s = time.perf_counter() - t0
@@ -2272,6 +2482,8 @@ def main() -> int:
             "max_abs_err": err[key], "ms": walk[key]["ms"], "plain_ms": walk[key]["plain_ms"],
             "bound_ms": cost[key]["bound_ms"], "bound_by": cost[key]["bound_by"],
             "walk_bound_ms": cost[key]["walk_bound_ms"],
+            **({"issue_floor_ms": issue_floor_ms(cost[key]["work"], sass and sass[key])}
+               if key in BVH_SASS else {}),
             "library_ms": None,
         })
     for mode in ("di", "gi"):

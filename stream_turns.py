@@ -1,18 +1,18 @@
 """Times kernels 5 and 6 (the big-scene stream kernels), 8 and 9 (the
-cluster kernels), A and 4 (the brute-force closest hit, and with the
+cluster kernels), 10 and 11 (the BVH kernels), A and 4 (the brute-force closest hit, and with the
 surface resolved), B (the brute-force any hit) and C (the reference-mode
 megakernel) of this checkout against those of other checkouts, on the
 same inputs of the same card, in turns.
 
 Run from the root of the repository, on a CUDA card:
 
-    python3 stream_turns.py [--kernels 5,6,8,9,A,B,4,C] OTHER_ROOT [OTHER_ROOT ...]
+    python3 stream_turns.py [--kernels 5,6,8,9,10,11,A,B,4,C] OTHER_ROOT [OTHER_ROOT ...]
 
 OTHER_ROOT is the root of another checkout of the repository (for
 example the parent commit, unpacked with ``git archive`` into a directory
 that .gitignore lists). Each checkout's ``strolle_tpu_torch`` is imported
 under a name of its own and builds its kernels from its own sources.
-``--kernels`` picks the kernels to time (all eight by default).
+``--kernels`` picks the kernels to time (all ten by default).
 
 The inputs of kernels 5 and 6: the dungeon at 800x608 with the sun at
 0.35 (chip_smoke.py's scene), chip_smoke.py's ray sets (primaries and
@@ -23,7 +23,10 @@ and the inputs of every kernel 5 and 6 launch of one reference sample
 (RenderConfig(include_sky=True)), named by the line that called
 ``trace_anyhit`` or ``trace_surface``. Kernels 8 and 9 the same, with the
 realtime GI shadow rays (captured from frame 0) among kernel 9's sets,
-and the launches captured under BIG_SCENE_STRATEGY "cluster". Kernel A:
+and the launches captured under BIG_SCENE_STRATEGY "cluster"; kernels 10
+and 11 as 8 and 9, under "packet", and each checkout's SASS instructions
+per node visit and per triangle test of 10 and 11 (chip_smoke.py's
+``walk_loops``). Kernel A:
 Cornell's primaries at
 800x608, every kernel A launch of one staged sample on Cornell (depth 4,
 use_pallas=False: the gradient route), the dungeon without its BVH
@@ -39,16 +42,17 @@ variants (chip_smoke.py's scenes).
 
 The turns: for each set, the other checkouts in the order given, this
 checkout twice, the others in reverse (A B B A). A turn launches the
-checkout's kernel alone on inputs prepared once: kernels 5, 6, 8 and 9
-through its own ``cuda_lib.launch_walk`` and ``launch_head`` (for 5 and 6
-sub-block boxes, scene-box cap or clipped t_max: the wrappers' set-up,
-the same in every checkout), A, B, 4 and C through its library's C entry point, into
+checkout's kernel alone on inputs prepared once: kernels 5, 6 and 8-11
+through its own ``cuda_lib.launch_walk`` (5, 6, 8 and 9 with its
+``launch_head``: for 5 and 6 sub-block boxes, scene-box cap or clipped
+t_max: the wrappers' set-up, the same in every checkout), A, B, 4 and C through its library's C entry point, into
 outputs allocated once. Each is timed with CUDA events (median of 15
 after 3; for A, B and 4, of 20 launches in a row, divided by 20), each
 timed run queued behind a ~1 ms sleep of the device, so that the host's
 time per launch stays out. Prints the card's line, per set the ms of every turn and
 whether every turn's outputs equal this checkout's (tri and t for 5, the
-flags for 6, 9 and B, every output of 8, A and 4, the radiance for C), the sum
+flags for 6, 9, 11 and B, every output of 8, 10, A and 4, the radiance for
+C), the sum
 over the captured launches per turn, and last one JSON object of all of
 it. For
 C it also prints each checkout's kernel against its own plain version
@@ -77,7 +81,7 @@ import chip_smoke as cs
 
 WIDTH, HEIGHT = 800, 608
 GI_CYCLE = 6
-KERNELS = ("5", "6", "8", "9", "A", "B", "4", "C")
+KERNELS = ("5", "6", "8", "9", "10", "11", "A", "B", "4", "C")
 #: ~1 ms of the device's sleep ahead of each timed run of launches
 SLEEP_CYCLES = 2_000_000
 #: The names of the launches captured on the BVH-less dungeon begin so.
@@ -101,12 +105,13 @@ def load_kernels(root: Path, alias: str):
 WALKS = {
     "stream": ("stream_kernels", ("5", "stream_trace_surface"), ("6", "stream_trace_anyhit")),
     "cluster": ("cluster_kernels", ("8", "cluster_trace_surface"), ("9", "cluster_trace_anyhit")),
+    "packet": ("bvh_kernels", ("10", "bvh_trace_surface"), ("11", "bvh_trace_anyhit")),
 }
 
 
 def capture_launches(scene, cam, luts, dev, walk: str) -> list:
     """(kernel, call site, o, d, t_max) of every launch of the ``walk``
-    strategy's two kernels (5 and 6, or 8 and 9) in one reference sample
+    strategy's two kernels (5 and 6, 8 and 9, or 10 and 11) in one reference sample
     and one realtime GI cycle on this checkout, under that strategy."""
     from strolle_tpu_torch.models.reference import trace_sample
     from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame_fused
@@ -258,8 +263,9 @@ def captured_totals(results, labels, kernels) -> dict:
 
 
 def walk_turns(order, labels, dev, walk: str, kernels: set) -> tuple[list, dict]:
-    """Kernels 5 and 6 ("stream") or 8 and 9 ("cluster"), those of
-    ``kernels``, in turns on the dungeon's sets and captured launches."""
+    """Kernels 5 and 6 ("stream"), 8 and 9 ("cluster") or 10 and 11
+    ("packet"), those of ``kernels``, in turns on the dungeon's sets and
+    captured launches."""
     from strolle_tpu_torch.scene.demo import dungeon_camera
 
     module, (ks, _), (ka, _) = WALKS[walk]
@@ -300,14 +306,16 @@ def walk_turns(order, labels, dev, walk: str, kernels: set) -> tuple[list, dict]
             outs = mod.cuda_lib.surface_outputs(batch, dev)
         if walk == "stream":
             head, ray_arg = mod.launch_head(x["clus"], x["subs"], x["rows"]), x["cap"]
-        else:
+        elif walk == "cluster":
             head, ray_arg = mod.launch_head(x["table"], x["rows"]), x["t_max"]
-        entry = f"strolle_{walk}_trace_{'anyhit' if anyhit else 'surface'}"
+        else:
+            head, ray_arg = (x["table"], x["rows"]), x["t_max"]
+        entry = f"strolle_{module.split('_')[0]}_trace_{'anyhit' if anyhit else 'surface'}"
 
         def launch():
             mod.cuda_lib.launch_walk(entry, head, x["o"], x["d"], ray_arg, outs, None)
 
-        # kernel 5's outputs compared: tri and t; kernel 8's: all
+        # kernel 5's outputs compared: tri and t; kernels 8's and 10's: all
         return launch, ((outs[1], outs[0]) if k == "5" else outs)
 
     results = in_turns(order, labels, cases, prep)
@@ -466,6 +474,12 @@ def main(argv: list[str]) -> int:
     order = others + [mine, mine] + others[::-1]
     labels = names + ["this", "this"] + names[::-1]
     results, totals, within = [], {}, []
+    sass = {}
+    if kernels & set(cs.BVH_SASS):
+        for lab, mod in zip(names + ["this"], others + [mine]):
+            counts = cs.sass_per_test(mod.cuda_lib.build()) or {}
+            sass[lab] = {k: counts.get(k) for k in cs.BVH_SASS}
+            print(f"SASS of kernels 10 and 11, {lab}: {sass[lab]}", flush=True)
     for walk, (_, (ks, _), (ka, _)) in WALKS.items():
         if kernels & {ks, ka}:
             r, t = walk_turns(order, labels, dev, walk, kernels)
@@ -476,7 +490,7 @@ def main(argv: list[str]) -> int:
         results += r
         totals.update(t)
     print(json.dumps({"card": card, "turns": labels, "sets": results,
-                      "captured_total_ms": totals}))
+                      "captured_total_ms": totals, "sass_10_11": sass}))
     ok = all(all(r["equal"]) for r in results if r["kernel"] != "C")
     return 0 if ok and all(within) else 1
 

@@ -111,6 +111,13 @@ def _walk(node_rows, of, df, best, live, work, on_leaf_row):
         live = live[p > 0]
 
 
+def _aligned(*tables):
+    """The node and triangle tables as the kernels read them, in 16-byte
+    loads: a table that does not start on a 16-byte boundary (a view into
+    another tensor) is copied."""
+    return tuple(t.clone() if t.is_contiguous() and t.data_ptr() % 16 else t for t in tables)
+
+
 def _count_fronts(work, ids, u, det) -> None:
     """Adds the tests of rays ``ids`` (one row each) whose first half
     passes to ``work``'s third column, where it has one."""
@@ -187,8 +194,8 @@ def bvh_trace_surface(node_rows, geom_rows, o, d, work=None) -> dict:
         t, tri, _, _, normal, uv, mat = bvh_trace_surface_plain(node_rows, geom_rows, o, d, work)
         return cuda_lib.surface_dict(t, tri, normal, uv, mat)
     outs = cuda_lib.surface_outputs(o.shape[:-1], o.device)
-    cuda_lib.launch_walk("strolle_bvh_trace_surface", (node_rows, geom_rows), o, d, None, outs,
-                         work)
+    cuda_lib.launch_walk("strolle_bvh_trace_surface", _aligned(node_rows, geom_rows), o, d, None,
+                         outs, work)
     cuda_lib.count_launch("bvh_trace_surface")
     return cuda_lib.surface_dict(*outs)
 
@@ -203,7 +210,7 @@ def bvh_trace_anyhit(node_rows, geom_rows, o, d, t_max, work=None) -> torch.Tens
     if o.device.type == "cpu":
         return bvh_trace_anyhit_plain(node_rows, geom_rows, o, d, tm, work)
     occ = torch.empty(o.shape[:-1], dtype=torch.bool, device=o.device)
-    cuda_lib.launch_walk("strolle_bvh_trace_anyhit", (node_rows, geom_rows), o, d, tm, (occ,),
-                         work)
+    cuda_lib.launch_walk("strolle_bvh_trace_anyhit", _aligned(node_rows, geom_rows), o, d, tm,
+                         (occ,), work)
     cuda_lib.count_launch("bvh_trace_anyhit")
     return occ

@@ -130,3 +130,47 @@ def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
         bk.bvh_trace_surface(tnodes[:, :8], trows, o, d)
     with pytest.raises(ValueError, match=r"\[T, 28\]"):
         bk.bvh_trace_anyhit(tnodes, trows[:, :12], o, d, 1.0)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def test_walk_is_per_ray_under_any_ray_order(soup):
+    """Kernels 10 and 11 walk each ray alone, in whatever grouping and
+    order the card runs their threads, so a ray's walk must not depend on
+    which rays are walked with it. Both plain versions, on 64 seeded rays
+    of each soup set permuted and walked in chunks of 32 and of 7, then put
+    back in order: every output and every ray's box, triangle and
+    first-half counts bit-equal to one walk of all 128 rays in order."""
+    *_, tnodes, trows = soup
+    rs = np.random.RandomState(5)
+    picked = [(o[k], d[k]) for o, d in map(soup_rays, ("around", "inside"))
+              for k in [rs.choice(o.shape[0], 64, replace=False)]]
+    o, d = (tt(np.concatenate(x)) for x in zip(*picked))
+    n = o.shape[0]
+    # t_max <= 0 on some rays: those never occlude and do not walk
+    tm = tt(rs.uniform(-0.5, 4.0, n).astype(np.float32))
+    walks = {
+        "surface": lambda idx, w: bk.bvh_trace_surface_plain(tnodes, trows, o[idx], d[idx], w),
+        "anyhit": lambda idx, w: (
+            bk.bvh_trace_anyhit_plain(tnodes, trows, o[idx], d[idx], tm[idx], w),),
+    }
+    for kernel, walk in walks.items():
+        work = torch.zeros((n, 3), dtype=torch.int32)
+        want = walk(torch.arange(n), work)
+        assert work[:, 0].any() and work[:, 1].any() and work[:, 2].any()
+        perm = torch.as_tensor(rs.permutation(n))
+        for chunk in (32, 7):
+            got = [torch.empty_like(x) for x in want]
+            gwork = torch.zeros_like(work)
+            for c0 in range(0, n, chunk):
+                idx = perm[c0:c0 + chunk]
+                w = torch.zeros((idx.numel(), 3), dtype=torch.int32)
+                for g, x in zip(got, walk(idx, w)):
+                    g[idx] = x
+                gwork[idx] = w
+            what = f"{kernel}, chunks of {chunk}"
+            for g, x in zip(got, want):
+                assert torch.equal(_bits(g), _bits(x)), what
+            assert torch.equal(gwork, work), what
