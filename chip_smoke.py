@@ -62,12 +62,20 @@ Run from the root of the repository:  python3 chip_smoke.py
    modes again under BIG_SCENE_STRATEGY "cluster" (kernels 8 and 9 only)
    and "packet" (kernels 10 and 11 only), counted the same way, with the
    same realtime check and the share of primary triangles that differ
-   from the "stream" route's; times trace_closest under "packet" (the
-   torch BVH traversal). Then kernel 7 (the fused spatial probe): holds
-   both modes against the plain version, oy/ox/found and jac bit-equal,
-   on the DI and GI spatial passes' own inputs of a Cornell and a dungeon
-   realtime frame (DI on frame 0, GI on frame 1) and on a seeded blocky
-   stack, at the default tuning; with STROLLE_PROBE_KERNEL=1 drives 18
+   from the "stream" route's (trace_closest under "packet", the torch
+   BVH traversal, is timed in 6). Then kernel 7 (the fused spatial probe): holds
+   its stack entry in both modes against the plain version, oy/ox/found
+   and jac bit-equal, on the DI and GI spatial passes' own inputs of a
+   Cornell and a dungeon realtime frame (DI on frame 0, GI on frame 1)
+   and on a seeded blocky stack, at the default tuning; holds its route
+   entry (the spatial passes' own launch) against its plain version on
+   the four captured passes and on the seeded stacks' planes read in
+   place (strided fields), rhs_x/rhs_y/found, the advanced stream and
+   jac bit-equal, and block 0's tables against _draw_probe_tables; counts
+   the device operations of one fused pass (probe_fused: at most 5, from
+   the aten ops and kernel launches it dispatches, printed beside a
+   torch.profiler trace's count);
+   with STROLLE_PROBE_KERNEL=1 drives 18
    realtime frames on each scene, counted: kernel 7 once a frame in DI
    mode and on frames 1 and 3 of each GI cycle in GI mode, the other
    kernels as with the switch off, the mean image within the reference
@@ -90,9 +98,10 @@ Run from the root of the repository:  python3 chip_smoke.py
    triangle tests that any of the walks counted here makes on the same
    rays (a triangle test's second half only where its first passes, as
    for A, B and 4); its own walk's count gives walk_bound_ms beside it,
-   and for 10 and 11 its SASS counts issue_floor_ms. Kernel 7 alone in
-   both modes on the Cornell frame's inputs, and the DI and GI stages on
-   both scenes with the probe switch off, on, on, off.
+   and for 10 and 11 its SASS counts issue_floor_ms. Kernel 7 in both
+   modes on the Cornell frame's inputs (its route entry, its stack entry
+   and the whole fused pass), and the DI and GI stages on both scenes
+   with the probe switch off, on, on, off.
 
 Prints a "kernels" JSON line and, last, {"ok": true, "device": ...}.
 Any failed check raises: the script then exits non-zero and prints no
@@ -181,6 +190,19 @@ FLOPS_SHADE = {False: 420, True: 190}
 #: 3 multiplies, the dot 5, the clamp 3) and 19 to combine, test and
 #: clamp them (117).
 OPS_PROBE_TRY = {"di": 52, "gi": 117}
+#: Operations of one entry of the route entry's tables, counted from
+#: csrc/probe_kernels.cu the same way: the try and level 4, the seeds 5,
+#: two PCG words 18, two unit floats 4, sqrt, the angle, cos and sin 4,
+#: four products 4, two truncations 2, two clamps 4 (45).
+OPS_PROBE_TABLE_ENTRY = 45
+#: Bytes a pixel of the route entry's fields (read) and outputs (written):
+#: depth 4, normal 12, is_some 1, m 4, and in GI mode v1_point, v2_point,
+#: v2_normal and the point 12 each; rhs_x 4, rhs_y 4, found 1, the int64
+#: stream 8, and in GI mode the Jacobian 4.
+ROUTE_BYTES = {"di": (21, 17), "gi": (69, 21)}
+#: Most device operations one fused pass (restir/di.py::probe_fused) may
+#: take on the card: the kernel's one launch, with room to spare.
+FUSED_PASS_MAX_OPS = 5
 
 
 class CheckFailed(RuntimeError):
@@ -220,14 +242,18 @@ def time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
 def profile_frames(fn, frames: int = 5) -> dict | None:
     """Device busy time per frame from a torch.profiler trace of
     ``frames`` calls, beside their CUDA-event wall time; the kernels
-    that took the most device time. None when the trace holds no device
-    events."""
+    that took the most device time. One call before them is the
+    profiler's warm-up step, whose events are dropped (the device's
+    tracing starts there); the recorded step's own marker is not
+    counted. None when the trace holds no device events."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -235,10 +261,11 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
             fn()
         end.record()
         end.synchronize()
+        prof.step()
     by_name: dict[str, float] = {}
     n_kernels = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
             n_kernels += 1
     if not by_name:
@@ -1707,19 +1734,24 @@ def spatial_inputs(scene, cam, cfg, luts, frames: int = 2) -> dict:
     return {"di": calls["di"][0], "gi": calls["gi"][0]}
 
 
+def pass_tuning(kind: str, t) -> tuple:
+    """(tries, radius, the GI keyword arguments) of a spatial pass."""
+    if kind == "di":
+        return t.di_spatial_samples, t.di_spatial_radius, {}
+    return t.gi_spatial_samples, t.gi_spatial_radius, dict(jac_reject=t.gi_jacobian_reject,
+                                                           jac_clamp=t.gi_jacobian_clamp)
+
+
 def probe_case(kind: str, args) -> tuple:
-    """Kernel 7's inputs (stack, dy, dx, seed, keyword arguments) for a
-    captured spatial pass, as its fused route builds them."""
+    """Kernel 7's stack-entry inputs (stack, dy, dx, seed, keyword
+    arguments) for a captured spatial pass, as restir/di.py::probe_inputs
+    builds them."""
     from strolle_tpu_torch.restir import di, gi
 
     _, surf, res, seed, _, t = args
-    if kind == "di":
-        stack, dy, dx, kw = di.probe_inputs(surf, (res.m,), seed, t.di_spatial_samples,
-                                            t.di_spatial_radius)
-    else:
-        stack, dy, dx, kw = di.probe_inputs(
-            surf, gi.probe_planes(surf, res), seed, t.gi_spatial_samples, t.gi_spatial_radius,
-            jac_reject=t.gi_jacobian_reject, jac_clamp=t.gi_jacobian_clamp)
+    tries, radius, gi_kw = pass_tuning(kind, t)
+    planes = (res.m,) if kind == "di" else gi.probe_planes(surf, res)
+    stack, dy, dx, kw = di.probe_inputs(surf, planes, seed, tries, radius, **gi_kw)
     return stack, dy, dx, seed, kw
 
 
@@ -1754,13 +1786,40 @@ def synthetic_probe_cases(device) -> dict:
                                       is_some=stack[4] > 0.5)
     seed = 0xBEEF
     cases = {}
+    gi_planes = [stack[5]] + [stack[k:k + 3].permute(1, 2, 0) for k in (6, 9, 12, 15)]
     for mode, planes_after, gi_kw in (("di", [stack[5]], {}),
-                                      ("gi", list(stack[5:]), dict(jac_reject=10.0, jac_clamp=3.0))):
+                                      ("gi", gi_planes, dict(jac_reject=10.0, jac_clamp=3.0))):
         radius = t.di_spatial_radius if mode == "di" else t.gi_spatial_radius
         tries = t.di_spatial_samples if mode == "di" else t.gi_spatial_samples
         st, dy, dx, kw = di.probe_inputs(surf_like, planes_after, seed, tries, radius, **gi_kw)
         cases[mode] = (st, dy, dx, seed, kw)
     return cases
+
+
+def synthetic_route_cases(cases: dict) -> dict:
+    """The route entry's inputs on the synthetic stacks (mode -> the
+    ``synthetic_probe_cases`` tuple), their planes read as fields in place:
+    pixel stride 1 and, for the vectors, component stride H x W (the
+    layout of a [3, H, W] buffer seen as [H, W, 3])."""
+    from strolle_tpu_torch.config import DEFAULT_TUNING as t
+    from strolle_tpu_torch.ops import offsets as shoff, rng
+
+    out = {}
+    for mode, (stack, _, _, seed, kw) in cases.items():
+        _, h, w = stack.shape
+
+        def vec(k, stack=stack):
+            return stack[k:k + 3].permute(1, 2, 0)
+
+        fields = (stack[0], vec(1), stack[4] > 0.5, stack[5]) + (
+            (vec(6), vec(9), vec(12), vec(15)) if mode == "gi" else ())
+        ys, xs = torch.meshgrid(torch.arange(h, device=stack.device),
+                                torch.arange(w, device=stack.device), indexing="ij")
+        radius = t.di_spatial_radius if mode == "di" else t.gi_spatial_radius
+        rkw = {k: v for k, v in kw.items() if k != "n_lvls"} | {
+            "radii": shoff.radius_levels(radius)}
+        out[mode] = (fields, seed, rng.wnoise_new(seed, xs, ys), rkw)
+    return out
 
 
 def compare_probe_kernel(cases: dict) -> dict:
@@ -1805,6 +1864,139 @@ def probe_cost(case: tuple) -> dict:
         9 + (4 if kw["mode"] == "gi" else 0))
     b, by = bound(tries * OPS_PROBE_TRY[kw["mode"]], nbytes)
     return {"pixels": px, "tries_made": tries, "bytes": nbytes, "bound_ms": b, "bound_by": by}
+
+
+def route_case(kind: str, args) -> tuple:
+    """Kernel 7's route-entry inputs for a captured spatial pass, as
+    restir/di.py::probe_fused hands them over: (fields, seed, state, the
+    keyword arguments of probe_route)."""
+    from strolle_tpu_torch.camera import screen_xy
+    from strolle_tpu_torch.ops import offsets as shoff, rng
+    from strolle_tpu_torch.restir import di, gi
+
+    cam, surf, res, seed, _, t = args
+    tries, radius, gi_kw = pass_tuning(kind, t)
+    planes = (res.m,) if kind == "di" else gi.probe_planes(surf, res)
+    kw = dict(di._probe_kw(surf, tries, radius, gi_kw), radii=shoff.radius_levels(radius))
+    xs, ys = screen_xy(cam)
+    return (surf.depth, surf.normal, surf.is_some, *planes), seed, rng.wnoise_new(seed, xs, ys), kw
+
+
+def compare_probe_route(cases: dict) -> None:
+    """Kernel 7's route entry against its plain version on each named
+    case (``route_case``): rhs_x, rhs_y, found, the advanced stream and,
+    in GI mode, jac bit-equal; the same outputs without the tables'
+    pointer (the main path's launch); block 0's tables equal to
+    restir/di.py::_draw_probe_tables on the card."""
+    from strolle_tpu_torch.ops.kernels import probe_kernels as pk
+    from strolle_tpu_torch.restir import di
+
+    for name, (fields, seed, state, kw) in cases.items():
+        n = kw["tries"] * len(kw["radii"]) * kw["n_var"]
+        tables = torch.full((2, n), -999, dtype=torch.int32, device=state.device)
+        got = pk.probe_route(fields, seed, state, tables_out=tables, **kw)
+        main = pk.probe_route(fields, seed, state, **kw)
+        want = pk.probe_route_plain(fields, seed, state, **kw)
+        drawn = torch.stack(di._draw_probe_tables(seed, kw["tries"], kw["radii"], kw["n_var"],
+                                                  kw["margin"], state.device))
+        torch.cuda.synchronize()
+        names = ("rhs_x", "rhs_y", "found", "state", "jac")
+        differing = {k: int((a != b).sum()) for k, a, b in zip(names, got, want)}
+        unequal_main = [k for k, a, b in zip(names, main, got) if not torch.equal(a, b)]
+        tab_off = int((tables != drawn).sum())
+        found = got[2].float().mean().item()
+        print(f"kernel 7 route entry ({name}, {kw['mode']}, {tuple(fields[0].shape)}, "
+              f"{kw['tries']} tries) vs plain: pixels differing {differing}, found share "
+              f"{found:.3f}; block 0's {n} table entries vs _draw_probe_tables: {tab_off} "
+              f"differ", flush=True)
+        check(not any(differing.values()), f"kernel 7 route entry ({name}): differs from its "
+                                           f"plain version")
+        check(not unequal_main, f"kernel 7 route entry ({name}): {unequal_main} change with "
+                                f"the tables' pointer")
+        check(tab_off == 0, f"kernel 7 route entry ({name}): block 0's tables differ from "
+                            f"_draw_probe_tables")
+        check(0.0 < found < 1.0, f"kernel 7 route entry ({name}): degenerate (found {found})")
+
+
+def route_cost(case: tuple, stack_case: tuple) -> dict:
+    """The route entry's least work on one case: the tries of the stack
+    entry on the same pass (``probe_cost``), the tables drawn once, and
+    the bytes it must move (``ROUTE_BYTES``; no tables, no stack)."""
+    fields, _, _, kw = case
+    work = probe_cost(stack_case)
+    px = work["pixels"]
+    n_tab = kw["tries"] * len(kw["radii"]) * kw["n_var"]
+    nbytes = px * sum(ROUTE_BYTES[kw["mode"]])
+    b, by = bound(work["tries_made"] * OPS_PROBE_TRY[kw["mode"]]
+                  + n_tab * OPS_PROBE_TABLE_ENTRY, nbytes)
+    return {"pixels": px, "tries_made": work["tries_made"], "bytes": nbytes, "bound_ms": b,
+            "bound_by": by}
+
+
+def fused_pass(kind: str, args):
+    """One call of restir/di.py::probe_fused on a captured pass, as the
+    spatial pass makes it."""
+    from strolle_tpu_torch.restir import di
+
+    cam, surf, _, seed, _, t = args
+    fields, _, state, _ = route_case(kind, args)
+    tries, radius, gi_kw = pass_tuning(kind, t)
+    return lambda: di.probe_fused(cam, surf, fields[3:], seed, tries, radius, state, **gi_kw)
+
+
+#: Aten ops that allocate or alias and launch nothing on the device.
+NO_DEVICE_WORK = ("aten.empty.", "aten.empty_like.", "aten.empty_strided.",
+                  "aten.lift_fresh.", "aten.detach.")
+
+
+def dispatched_ops(fn, cuda_lib=None) -> tuple[int, dict]:
+    """The device operations of one call of ``fn``, counted without a
+    trace: the aten ops it dispatches other than views and allocations
+    (a TorchDispatchMode), and the hand-written kernels it launches
+    (``LAUNCHES`` of ``cuda_lib``, this checkout's by default). Returns
+    (their number, the launches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    if cuda_lib is None:
+        from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    ops = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or str(func).startswith(NO_DEVICE_WORK)):
+                ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    cuda_lib.reset_launch_counts()
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    return len(ops) + sum(launches.values()), launches
+
+
+def fused_pass_ops(cases: dict, calls: int = 5) -> dict:
+    """Device operations per fused pass on each named (kind, captured
+    args): counted from what one pass dispatches (``dispatched_ops``: at
+    most FUSED_PASS_MAX_OPS, kernel 7 launched once) and, beside that,
+    from a torch.profiler trace of ``calls`` passes (whose device records
+    a short trace can lose: then it is printed as lost)."""
+    out = {}
+    for name, (kind, args) in cases.items():
+        fn = fused_pass(kind, args)
+        ops, launches = dispatched_ops(fn)
+        prof = profile_frames(fn, frames=calls)
+        traced = ("lost its device records" if prof is None else
+                  f"{prof['device_ops_per_frame']:.1f} device ops, {prof['device_busy_ms']:.4f} "
+                  f"ms busy, {prof['wall_ms']:.4f} ms wall a call")
+        print(f"fused probe pass ({name}): {ops} device ops dispatched (launches {launches}); "
+              f"torch.profiler over {calls} passes: {traced}", flush=True)
+        check(ops <= FUSED_PASS_MAX_OPS, f"fused pass ({name}): {ops} device ops")
+        check(launches == {f"probe_spatial_{kind}": 1},
+              f"fused pass ({name}): launched {launches}, not kernel 7 once")
+        out[name] = {"device_ops": ops, "profile": prof}
+    return out
 
 
 def probe_launches(frames: int) -> dict:
@@ -2153,15 +2345,6 @@ def main() -> int:
     stream_tri = trace_surface(dg, dpo, dpd).tri
     strat = {name: drive_strategy(name, dg, dcam, dluts, dcfg, dref1, stream_tri)
              for name in ("cluster", "packet")}
-    # the torch BVH traversal on the card: trace_closest's route under
-    # "packet" (and every strategy but "stream")
-    with strategy("packet"):
-        cuda_lib.reset_launch_counts()
-        ms_traverse = time_ms(lambda: trace_closest(dg, dpo, dpd), warmup=1, iters=3)
-        profile_traverse = profile_frames(lambda: trace_closest(dg, dpo, dpd), frames=1)
-        check(not cuda_lib.LAUNCHES, f"trace_closest under 'packet' launched {cuda_lib.LAUNCHES}")
-    print(f"trace_closest under 'packet' (the torch BVH traversal) on {dpo.numel() // 3} "
-          f"primary rays: {ms_traverse:.1f} ms, profile {profile_traverse}", flush=True)
 
     # --- 5d. kernel 7, the spatial-probe route, the switches, the heatmap ---
     phase("5d")
@@ -2173,9 +2356,16 @@ def main() -> int:
                    "cornell_gi": probe_case("gi", cap["gi"]),
                    "dungeon": probe_case("di", dcap["di"]),
                    "dungeon_gi": probe_case("gi", dcap["gi"])}
-    probe_cases.update({f"synthetic_{k}": v for k, v in synthetic_probe_cases(device).items()})
+    synthetic = synthetic_probe_cases(device)
+    probe_cases.update({f"synthetic_{k}": v for k, v in synthetic.items()})
     probe_err = compare_probe_kernel(probe_cases)
     err.update({"7di": probe_err["di"], "7gi": probe_err["gi"]})
+    captured = {"cornell": ("di", cap["di"]), "cornell_gi": ("gi", cap["gi"]),
+                "dungeon": ("di", dcap["di"]), "dungeon_gi": ("gi", dcap["gi"])}
+    route_cases = {name: route_case(kind, args) for name, (kind, args) in captured.items()}
+    route_cases.update({f"synthetic_{k}": v for k, v in synthetic_route_cases(synthetic).items()})
+    compare_probe_route(route_cases)
+    fused_ops = fused_pass_ops(captured)
     di_routes_equal(scene, cap["di"])
     probe_route = {}
     (probe_rt_launches, p_state, probe_route["cornell_vs_reference"],
@@ -2205,6 +2395,15 @@ def main() -> int:
 
     # --- 6. timings -----------------------------------------------------
     phase("6")
+    # the torch BVH traversal on the card: trace_closest's route under
+    # "packet" (and every strategy but "stream")
+    with strategy("packet"):
+        cuda_lib.reset_launch_counts()
+        ms_traverse = time_ms(lambda: trace_closest(dg, dpo, dpd), warmup=1, iters=3)
+        profile_traverse = profile_frames(lambda: trace_closest(dg, dpo, dpd), frames=1)
+        check(not cuda_lib.LAUNCHES, f"trace_closest under 'packet' launched {cuda_lib.LAUNCHES}")
+    print(f"trace_closest under 'packet' (the torch BVH traversal) on {dpo.numel() // 3} "
+          f"primary rays: {ms_traverse:.1f} ms, profile {profile_traverse}", flush=True)
     rays = WIDTH * HEIGHT * (DEPTH + 1) * 2
     ms_mega = time_ms(lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False))
     ms_staged = time_ms(
@@ -2337,15 +2536,26 @@ def main() -> int:
     least_work_bounds(cost)
 
     # kernel 7 on the Cornell frame's own spatial inputs (DI frame 0, GI
-    # frame 1), and the DI and GI stages with the switch off and on in turns
+    # frame 1): the route entry (the main path's launch), the stack entry
+    # and the whole fused pass; the DI and GI stages with the switch off
+    # and on in turns
     probe_t = {}
-    for mode, case in (("di", probe_cases["cornell"]), ("gi", probe_cases["cornell_gi"])):
-        stack, dy, dx, seed, kw = case
+    for mode, name in (("di", "cornell"), ("gi", "cornell_gi")):
+        stack, dy, dx, seed, kw = probe_cases[name]
+        fields, rseed, rstate, rkw = route_cases[name]
+        fused = fused_pass(mode, captured[name][1])
         probe_t[mode] = {
-            "ms": time_ms(lambda: pk.probe_spatial(stack, dy, dx, seed, **kw)),
-            "plain_ms": time_ms(lambda: pk.probe_spatial_plain(stack, dy, dx, seed, **kw),
+            "ms": time_ms(lambda: pk.probe_route(fields, rseed, rstate, **rkw)),
+            "plain_ms": time_ms(lambda: pk.probe_route_plain(fields, rseed, rstate, **rkw),
                                 warmup=1, iters=5),
-            **probe_cost(case),
+            **route_cost(route_cases[name], probe_cases[name]),
+            "stack_entry": {
+                "ms": time_ms(lambda: pk.probe_spatial(stack, dy, dx, seed, **kw)),
+                "plain_ms": time_ms(lambda: pk.probe_spatial_plain(stack, dy, dx, seed, **kw),
+                                    warmup=1, iters=5),
+                **probe_cost(probe_cases[name]),
+            },
+            "fused_pass": {"ms": time_ms(fused), **fused_ops[name]},
         }
     probe_stages = {}
     probe_stages["cornell"], rt_state = time_probe_stages(scene, cam, rt_state, 11000)
@@ -2495,6 +2705,9 @@ def main() -> int:
             "max_abs_err": err["7" + mode], "ms": probe_t[mode]["ms"],
             "plain_ms": probe_t[mode]["plain_ms"], "bound_ms": probe_t[mode]["bound_ms"],
             "bound_by": probe_t[mode]["bound_by"], "library_ms": None,
+            "stack_entry": {k: probe_t[mode]["stack_entry"][k]
+                            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "fused_pass": probe_t[mode]["fused_pass"],
         })
     check(len(kernels) == 12, "the kernels line must list the twelve ported kernels")
     for k in kernels:

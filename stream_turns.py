@@ -1,18 +1,18 @@
 """Times kernels 5 and 6 (the big-scene stream kernels), 8 and 9 (the
 cluster kernels), 10 and 11 (the BVH kernels), A and 4 (the brute-force closest hit, and with the
-surface resolved), B (the brute-force any hit) and C (the reference-mode
-megakernel) of this checkout against those of other checkouts, on the
-same inputs of the same card, in turns.
+surface resolved), B (the brute-force any hit), C (the reference-mode
+megakernel) and 7 (the spatial probe) of this checkout against those of
+other checkouts, on the same inputs of the same card, in turns.
 
 Run from the root of the repository, on a CUDA card:
 
-    python3 stream_turns.py [--kernels 5,6,8,9,10,11,A,B,4,C] OTHER_ROOT [OTHER_ROOT ...]
+    python3 stream_turns.py [--kernels 5,6,8,9,10,11,A,B,4,C,7] OTHER_ROOT [OTHER_ROOT ...]
 
 OTHER_ROOT is the root of another checkout of the repository (for
 example the parent commit, unpacked with ``git archive`` into a directory
 that .gitignore lists). Each checkout's ``strolle_tpu_torch`` is imported
 under a name of its own and builds its kernels from its own sources.
-``--kernels`` picks the kernels to time (all ten by default).
+``--kernels`` picks the kernels to time (all eleven by default).
 
 The inputs of kernels 5 and 6: the dungeon at 800x608 with the sun at
 0.35 (chip_smoke.py's scene), chip_smoke.py's ray sets (primaries and
@@ -38,7 +38,17 @@ launch of one 6-frame realtime GI cycle on Cornell (RenderConfig()), and
 the BVH-less dungeon on the same random rays. Kernel 4: Cornell's
 primaries and every kernel 4 launch of the same realtime GI cycle.
 Kernel C: Cornell at 800x608, depth 4, in its four (flat, no_metal)
-variants (chip_smoke.py's scenes).
+variants (chip_smoke.py's scenes). Kernel 7: the DI and GI spatial
+passes' own inputs, captured from a Cornell and a dungeon realtime frame
+(DI on frame 0, GI on frame 1, chip_smoke.py's ``spatial_inputs``), in
+three forms: the stack entry alone (``strolle_probe_spatial``, each
+checkout's C entry on this checkout's stack and tables), the route entry
+alone (``strolle_probe_route``, in the checkouts that have it) and each
+checkout's whole fused pass (``restir/di.py::probe_fused``, from the
+fields to its outputs, host time inside), whose device operations per
+call are printed as it dispatches them (chip_smoke.py's
+``dispatched_ops``) and with its busy and wall time from
+``torch.profiler``.
 
 The turns: for each set, the other checkouts in the order given, this
 checkout twice, the others in reverse (A B B A). A turn launches the
@@ -52,7 +62,8 @@ timed run queued behind a ~1 ms sleep of the device, so that the host's
 time per launch stays out. Prints the card's line, per set the ms of every turn and
 whether every turn's outputs equal this checkout's (tri and t for 5, the
 flags for 6, 9, 11 and B, every output of 8, 10, A and 4, the radiance for
-C), the sum
+C, every output of 7: oy, ox, found and jac, or rhs_x, rhs_y, found,
+the stream and jac), the sum
 over the captured launches per turn, and last one JSON object of all of
 it. For
 C it also prints each checkout's kernel against its own plain version
@@ -67,6 +78,7 @@ within 1e-4).
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 import importlib.util
 import json
@@ -81,7 +93,7 @@ import chip_smoke as cs
 
 WIDTH, HEIGHT = 800, 608
 GI_CYCLE = 6
-KERNELS = ("5", "6", "8", "9", "10", "11", "A", "B", "4", "C")
+KERNELS = ("5", "6", "8", "9", "10", "11", "A", "B", "4", "C", "7")
 #: ~1 ms of the device's sleep ahead of each timed run of launches
 SLEEP_CYCLES = 2_000_000
 #: The names of the launches captured on the BVH-less dungeon begin so.
@@ -454,6 +466,123 @@ def brute_turns(order, labels, dev, kernels) -> tuple[list, dict, list]:
     return results, captured_totals(results, labels, ("A", "B", "4")), within
 
 
+def package_module(smod, name: str):
+    """Module ``name`` (a path under the package) of the checkout whose
+    stream-kernel module is ``smod``."""
+    return importlib.import_module(smod.__name__.split(".")[0] + "." + name)
+
+
+def probe_turns(order, labels, dev) -> tuple[list, dict]:
+    """Kernel 7 in turns on the spatial passes' own inputs, captured from a
+    Cornell and a dungeon realtime frame (DI on frame 0, GI on frame 1;
+    chip_smoke.py's ``spatial_inputs``): the stack entry alone, through
+    each checkout's C entry on this checkout's stack and tables; the route
+    entry alone, in the checkouts that have it; and each checkout's whole
+    fused pass, ``restir/di.py::probe_fused``, from the fields to its
+    outputs (host time inside), with its device operations per call as it
+    dispatches them and as ``torch.profiler`` traces them."""
+    from strolle_tpu_torch.models.restir import RenderConfig
+    from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+    from strolle_tpu_torch.scene.demo import dungeon_camera
+
+    scene, cam = cornell_box(device=dev), cornell_camera(WIDTH, HEIGHT, device=dev)
+    dg, luts = cs.dungeon_scene(dev)
+    dcam = dungeon_camera(WIDTH, HEIGHT, device=dev)
+    caps = {"cornell": cs.spatial_inputs(scene, cam, RenderConfig(), None),
+            "dungeon": cs.spatial_inputs(dg, dcam, RenderConfig(include_sky=True), luts)}
+    passes = [(f"{name}_{kind}", kind, cap[kind]) for name, cap in caps.items()
+              for kind in ("di", "gi")]
+    f32, i32 = dict(device=dev), dict(dtype=torch.int32, device=dev)
+
+    def prep_stack(mod, k, x):
+        stack, dy, dx, seed, kw = x
+        _, h, w = stack.shape
+        gi = kw["mode"] == "gi"
+        outs = (torch.empty((h, w), **i32), torch.empty((h, w), **i32),
+                torch.empty((h, w), dtype=torch.bool, device=dev)) + (
+            (torch.empty((h, w), **f32),) if gi else ())
+        lib = mod.cuda_lib.library()
+        args = (stack.data_ptr(), h, w, dy.data_ptr(), dx.data_ptr(), int(seed) & 0xFFFFFFFF,
+                int(gi), kw["tries"],
+                kw["n_var"], kw["n_lvls"], kw["depth_tol"], kw["normal_min"],
+                1.0 / kw.get("jac_reject", 10.0), kw.get("jac_reject", 10.0),
+                1.0 / kw.get("jac_clamp", 3.0), kw.get("jac_clamp", 3.0),
+                *(o.data_ptr() for o in outs[:3]), outs[3].data_ptr() if gi else None,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+        def launch():
+            mod.cuda_lib.check("kernel 7", lib.strolle_probe_spatial(*args))
+
+        return launch, outs
+
+    def prep_route(mod, k, x):
+        fields, seed, state, kw = x
+        pk = package_module(mod, "ops.kernels.probe_kernels")
+        layouts = pk._check_route(fields, state, kw["mode"], kw["tries"], kw["radii"],
+                                  kw["n_var"], kw["margin"], None)
+        h, w = state.shape
+        gi = kw["mode"] == "gi"
+        outs = (torch.empty((h, w), **i32), torch.empty((h, w), **i32),
+                torch.empty((h, w), dtype=torch.bool, device=dev),
+                torch.empty((h, w), dtype=torch.int64, device=dev)) + (
+            (torch.empty((h, w), **f32),) if gi else ())
+        rows = [(f.data_ptr(), px, comp) for f, (px, comp) in zip(fields, layouts)]
+        rows += [(0, 0, 0)] * (8 - len(rows))
+        table = (ctypes.c_longlong * 24)(*(v for row in rows for v in row))
+        radii = (ctypes.c_float * len(kw["radii"]))(*kw["radii"])
+        lib = mod.cuda_lib.library()
+        jr, jc = kw.get("jac_reject", 10.0), kw.get("jac_clamp", 3.0)
+        args = (table, h, w, int(seed) & 0xFFFFFFFF, int(gi), kw["tries"], kw["n_var"],
+                len(kw["radii"]), radii,
+                kw["margin"], kw["depth_tol"], kw["normal_min"], 1.0 / jr, jr, 1.0 / jc, jc,
+                *(o.data_ptr() for o in outs[:4]), outs[4].data_ptr() if gi else None, None,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+        def launch():
+            mod.cuda_lib.check("kernel 7 route", lib.strolle_probe_route(*args))
+
+        return launch, outs
+
+    def prep_fused(mod, k, x):
+        kind, (pcam, surf, res, seed, _, t) = x
+        di = package_module(mod, "restir.di")
+        gi = package_module(mod, "restir.gi")
+        tries, radius, gi_kw = cs.pass_tuning(kind, t)
+        planes = (res.m,) if kind == "di" else gi.probe_planes(surf, res)
+        xs, ys = package_module(mod, "camera").screen_xy(pcam)
+        state = package_module(mod, "ops.rng").wnoise_new(seed, xs, ys)
+        outs = []
+
+        def launch():
+            outs[:] = di.probe_fused(pcam, surf, planes, seed, tries, radius, state, **gi_kw)
+
+        return launch, outs
+
+    results = in_turns(order, labels, [("7", f"{name} stack", cs.probe_case(kind, args),
+                                        HEIGHT * WIDTH) for name, kind, args in passes],
+                       prep_stack, reps=20)
+    with_route = [(m, lab) for m, lab in zip(order, labels)
+                  if hasattr(package_module(m, "ops.kernels.probe_kernels"), "probe_route")]
+    results += in_turns([m for m, _ in with_route], [lab for _, lab in with_route],
+                        [("7", f"{name} route", cs.route_case(kind, args), HEIGHT * WIDTH)
+                         for name, kind, args in passes], prep_route, reps=20)
+    results += in_turns(order, labels, [("7", f"{name} fused", (kind, args), HEIGHT * WIDTH)
+                                        for name, kind, args in passes], prep_fused)
+    profiles = {}
+    for lab, mod in dict(zip(labels, order)).items():
+        for name, kind, args in passes:
+            launch, _ = prep_fused(mod, "7", (kind, args))
+            ops, _ = cs.dispatched_ops(launch, package_module(mod, "ops.kernels.cuda_lib"))
+            prof = cs.profile_frames(launch, frames=5)
+            profiles[f"{lab} {name}"] = {"dispatched_ops": ops, "profile": prof}
+            traced = ("lost its device records" if prof is None else
+                      f"{prof['device_ops_per_frame']:.1f} device ops, "
+                      f"{prof['device_busy_ms']:.4f} ms busy, {prof['wall_ms']:.4f} ms wall a call")
+            print(f"kernel 7 fused pass, {lab}, {name}: {ops} device ops dispatched; "
+                  f"torch.profiler over 5 passes: {traced}", flush=True)
+    return results, profiles
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("stream_turns: no CUDA device available", file=sys.stderr)
@@ -489,8 +618,13 @@ def main(argv: list[str]) -> int:
         r, t, within = brute_turns(order, labels, dev, kernels)
         results += r
         totals.update(t)
+    probe_profiles = {}
+    if "7" in kernels:
+        r, probe_profiles = probe_turns(order, labels, dev)
+        results += r
     print(json.dumps({"card": card, "turns": labels, "sets": results,
-                      "captured_total_ms": totals, "sass_10_11": sass}))
+                      "captured_total_ms": totals, "sass_10_11": sass,
+                      "probe_fused_profiles": probe_profiles}))
     ok = all(all(r["equal"]) for r in results if r["kernel"] != "C")
     return 0 if ok and all(within) else 1
 

@@ -90,6 +90,14 @@ _SIGNATURES = {
     "strolle_probe_spatial": [
         _P, _I, _I, _P, _P, _U, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P,
     ],
+    # fields (host: 8 x (pointer, pixel stride, component stride)), h, w,
+    # seed, gi, tries, n_var, n_lvls, radii (host), margin, depth_tol,
+    # normal_min, j_lo, j_hi, c_lo, c_hi, rhs_x, rhs_y, found, state, jac
+    # (NULL in DI mode), tab_out (NULL on the route), stream
+    "strolle_probe_route": [
+        _P, _I, _I, _U, _I, _I, _I, _I, _P, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P,
+        _P,
+    ],
 }
 
 

@@ -9,10 +9,11 @@
 The neighbour probe of the spatial pass has the JAX package's two
 routes: by default the tensor probe (shared offset tables,
 ops/offsets.py), and with ``STROLLE_PROBE_KERNEL=1`` in the environment
-(read on the host at each call) the fused probe of
-``ops/kernels/probe_kernels.py`` (kernel 7 on the card), unless the
-caller passes ``use_pallas=False``, as the differentiable frame does.
-In DI mode the two routes give the same result.
+(read on the host at each call) the fused probe, ``probe_fused``: the
+route entry of ``ops/kernels/probe_kernels.py`` (on the card one launch
+of kernel 7, which draws the tables itself), unless the caller passes
+``use_pallas=False``, as the differentiable frame does. In DI mode the
+two routes give the same result.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..ops import checkerboard as cb
 from ..ops import gather, math as vm, offsets as shoff, rng
 from ..ops.hit import Surface
 from ..ops.kernels import probe_kernels
+from ..ops.kernels.probe_kernels import try_seed
 from ..ops.lights import gather_light, radiance, shadow_ray_bnoise
 from ..ops.trace import trace_anyhit
 from ..scene.types import LIGHT_NONE, Scene
@@ -179,11 +181,6 @@ def checkerboard_active(camera: Camera, frame: int) -> torch.Tensor:
     return (xs % 2) == ((int(frame) // 2 + 1 + ys) % 2)
 
 
-def try_seed(seed: int, nth: int) -> int:
-    """The offset-table seed of spatial try ``nth``."""
-    return (int(seed) ^ ((0x9E3779B9 * (nth + 1)) & rng.MASK32)) & rng.MASK32
-
-
 def _di_probe_tensor(camera: Camera, surf: Surface, res: rsv.DiReservoirs, seed: int,
                      tuning: Tuning, state):
     """The tensor probe of di_spatial: (rhs_x, rhs_y, found, state)."""
@@ -239,40 +236,51 @@ def _draw_probe_tables(seed: int, tries: int, radii, n_var: int, margin: int, de
     return torch.cat(dys), torch.cat(dxs)
 
 
-def probe_inputs(surf: Surface, planes, seed: int, tries: int, radius: float, **gi_kw):
-    """Kernel 7's inputs for one spatial pass: (stack, dy_tab, dx_tab,
-    the keyword arguments of ``probe_spatial``). The stack is the
-    surface's gate planes (depth, normal, is_some) and ``planes`` (m, then
-    in GI mode, given ``jac_reject`` and ``jac_clamp``, the reservoir's and
-    the surface's points, ``gi.probe_planes``)."""
+def _probe_kw(surf: Surface, tries: int, radius: float, gi_kw: dict) -> dict:
+    """The keyword arguments both entries of kernel 7 share for one pass."""
     h, w = surf.depth.shape
+    return dict(mode="gi" if gi_kw else "di", tries=tries, n_var=2,
+                margin=shoff.probe_margin(radius, h, w), depth_tol=0.33, normal_min=0.33,
+                **gi_kw)
+
+
+def probe_inputs(surf: Surface, planes, seed: int, tries: int, radius: float, **gi_kw):
+    """Kernel 7's stack-entry inputs for one spatial pass, in the JAX
+    kernel's layout: (stack, dy_tab, dx_tab, the keyword arguments of
+    ``probe_kernels.probe_spatial``). The stack is the surface's gate
+    planes (depth, normal, is_some) and ``planes`` (m, then in GI mode,
+    given ``jac_reject`` and ``jac_clamp``, the reservoir's and the
+    surface's points, ``gi.probe_planes``: three planes each). The
+    spatial passes build none of it: their route, ``probe_fused``, reads
+    the fields where they lie."""
     radii = shoff.radius_levels(radius)
-    margin = shoff.probe_margin(radius, h, w)
-    dy_tab, dx_tab = _draw_probe_tables(seed, tries, radii, 2, margin, surf.depth.device)
-    stack = torch.stack([surf.depth, *surf.normal.unbind(-1), surf.is_some.to(torch.float32),
-                         *planes])
-    kw = dict(mode="gi" if gi_kw else "di", tries=tries, n_var=2, n_lvls=len(radii),
-              margin=margin, depth_tol=0.33, normal_min=0.33, **gi_kw)
+    kw = dict(_probe_kw(surf, tries, radius, gi_kw), n_lvls=len(radii))
+    dy_tab, dx_tab = _draw_probe_tables(seed, tries, radii, 2, kw["margin"], surf.depth.device)
+    m, *vectors = planes
+    stack = torch.stack([surf.depth, *surf.normal.unbind(-1), surf.is_some.to(torch.float32), m,
+                         *(c for f in vectors for c in f.unbind(-1))])
     return stack, dy_tab, dx_tab, kw
 
 
 def probe_fused(camera: Camera, surf: Surface, planes, seed: int, tries: int, radius: float,
                 state, **gi_kw):
-    """The fused probe route of the spatial passes (``probe_inputs``).
-    Returns (rhs_x, rhs_y, found, state advanced by one word per try, [the
-    clamped Jacobian]): the accepted neighbour's mirrored coordinates (0
-    where none), as the tensor probe gives them."""
-    stack, dy_tab, dx_tab, kw = probe_inputs(surf, planes, seed, tries, radius, **gi_kw)
-    out = probe_kernels.probe_spatial(stack, dy_tab, dx_tab, seed, **kw)
-    oy, ox, done = out[:3]
-    xs, ys = screen_xy(camera)
-    cx, cy = contain_xy(camera, xs + ox, ys + oy)
-    # the kernel took one word per try from each pixel's stream: advance
-    # the host-side stream alike, so that the merge draws the tensor
-    # route's numbers
-    for _ in range(tries):
-        state, _ = rng.next_u32(state)
-    return (torch.where(done, cx, 0), torch.where(done, cy, 0), done, state) + out[3:]
+    """The fused probe route of the spatial passes: kernel 7's route entry
+    (``probe_kernels.probe_route``) over the surface's depth, normal and
+    is_some and ``planes`` (m, then in GI mode, given ``jac_reject`` and
+    ``jac_clamp``, ``gi.probe_planes``), read where they lie, with the
+    offset tables drawn from ``seed`` as ``_draw_probe_tables`` draws
+    them. ``state`` is the pass's stream, ``rng.wnoise_new(seed, x, y)``
+    on ``camera``'s pixels. Returns (rhs_x, rhs_y, found, state advanced
+    by one word per try, [the clamped Jacobian]): the accepted
+    neighbour's mirrored coordinates (0 where none), as the tensor probe
+    gives them. On the card this is one kernel launch; on the CPU the
+    route entry's plain version."""
+    if tuple(surf.depth.shape) != (camera.height, camera.width):
+        raise ValueError(f"probe_fused: fields of shape {tuple(surf.depth.shape)} for a "
+                         f"{camera.width}x{camera.height} camera")
+    return probe_kernels.probe_route((surf.depth, surf.normal, surf.is_some, *planes), seed,
+                                     state, radii=shoff.radius_levels(radius),
+                                     **_probe_kw(surf, tries, radius, gi_kw))
 
 
 def di_spatial(scene: Scene, camera: Camera, surf: Surface, res: rsv.DiReservoirs,

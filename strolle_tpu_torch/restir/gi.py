@@ -485,10 +485,9 @@ def _gi_probe_tensor(camera: Camera, surf: Surface, res: GiReservoirs, seed: int
 
 
 def probe_planes(surf: Surface, res: GiReservoirs):
-    """The fused probe's planes after the surface's gates in GI mode: m,
+    """The fused probe's fields after the surface's gates in GI mode: m,
     v1_point, v2_point, v2_normal, the surface point."""
-    return (res.m, *res.v1_point.unbind(-1), *res.v2_point.unbind(-1),
-            *res.v2_normal.unbind(-1), *surf.point.unbind(-1))
+    return (res.m, res.v1_point, res.v2_point, res.v2_normal, surf.point)
 
 
 def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, seed: int,

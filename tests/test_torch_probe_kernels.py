@@ -10,6 +10,14 @@ without the first they take the jnp loop. Its passes are called unjitted,
 as the JAX test calls them, and each mode's kernel is compiled once per
 test process (``_jax_case``).
 
+Kernel 7's route entry (``probe_kernels.probe_route``, the spatial
+passes' own) is held without JAX at 24x32, on seeded fields in the
+layouts the kernel reads in place: its plain version against the
+composition the route replaced (the stack entry's inputs, its plain
+version, the mirror, the zeroing and the stream advance), every output
+equal; its stream against ``rng.next_u32``; its one-pass tables against
+``_draw_probe_tables``, bit-equal.
+
 Tolerances. Accept decisions (oy, ox, found) may differ on at most 0.1%
 of pixels: XLA:CPU fuses the multiply-adds of the normal dot and the
 Jacobian, PyTorch does not, and a tap on a gate's edge can go either
@@ -44,11 +52,12 @@ from strolle_tpu.scene.cornell import cornell_box as jax_cornell_box
 from strolle_tpu.scene.cornell import cornell_camera as jax_cornell_camera
 from strolle_tpu_torch import convert
 from strolle_tpu_torch.bvh import scene_with_bvh
-from strolle_tpu_torch.camera import pixel_rays, screen_grid, screen_xy
-from strolle_tpu_torch.config import Tuning
+from strolle_tpu_torch.camera import contain_xy, pixel_rays, screen_grid, screen_xy
+from strolle_tpu_torch.config import DEFAULT_TUNING, Tuning
 from strolle_tpu_torch.models import heatmap, restir as tr
 from strolle_tpu_torch.ops.hit import Surface
 from strolle_tpu_torch.ops.kernels import cuda_lib
+from strolle_tpu_torch.ops import offsets as shoff
 from strolle_tpu_torch.ops import rng
 from strolle_tpu_torch.ops.kernels import probe_kernels as pk
 from strolle_tpu_torch.restir import di, gi
@@ -260,6 +269,146 @@ def test_probe_routes(monkeypatch):
         with pytest.raises(ValueError):
             pk.probe_spatial(args["stack"], args["dy"], args["dx"], 1,
                              **(kw | {"margin": args["margin"]}))
+
+
+# --- kernel 7's route entry (no JAX) ------------------------------------------
+
+ROUTE_H, ROUTE_W = 24, 32
+
+
+def _route_pass(mode: str, seed: int = 11):
+    """(camera, surface, reservoirs, planes, gi keyword arguments) of a
+    seeded spatial pass at ROUTE_H x ROUTE_W, its fields in layouts the
+    route entry reads in place: depth every other element of a wider
+    buffer, vectors the first three channels of [H, W, 4] buffers (pixel
+    stride 4), v1_point a [3, H, W] buffer seen as [H, W, 3], is_some bool;
+    depth and is_some blocky, so that the gates pass and fail."""
+    h, w = ROUTE_H, ROUTE_W
+    rs = np.random.RandomState(seed)
+
+    def blocky(lo, hi):
+        return np.repeat(np.repeat(rs.uniform(lo, hi, (h // 4, w // 4)), 4, 0), 4, 1)
+
+    def vec(unit=False, absent=0.0):
+        v = rs.normal(size=(h, w, 4))
+        if unit:
+            v[..., :3] /= np.linalg.norm(v[..., :3], axis=-1, keepdims=True)
+        v *= rs.uniform(size=(h, w, 1)) >= absent
+        return torch.tensor(v.astype(np.float32))[..., :3]
+
+    depth = torch.tensor(np.repeat(blocky(1.0, 5.0), 2, 1).astype(np.float32))[:, ::2]
+    surf = Surface.empty((h, w), "cpu").replace(
+        depth=depth, normal=vec(unit=True), is_some=torch.tensor(blocky(0.0, 1.0) > 0.15),
+        point=vec())
+    m = torch.tensor(((rs.uniform(size=(h, w)) > 0.2) * rs.uniform(1, 8, (h, w)))
+                     .astype(np.float32))
+    if mode == "di":
+        return surf, DiReservoirs.empty((h, w), "cpu").replace(m=m), (m,), {}
+    v1 = torch.tensor(rs.normal(size=(3, h, w)).astype(np.float32)).permute(1, 2, 0)
+    res = GiReservoirs.empty((h, w), "cpu").replace(
+        m=m, v1_point=v1, v2_point=vec(absent=0.1), v2_normal=vec(unit=True))
+    gi_kw = dict(jac_reject=DEFAULT_TUNING.gi_jacobian_reject,
+                 jac_clamp=DEFAULT_TUNING.gi_jacobian_clamp)
+    return surf, res, gi.probe_planes(surf, res), gi_kw
+
+
+def _tuning_of(mode: str) -> tuple[int, float]:
+    t = DEFAULT_TUNING
+    return ((t.di_spatial_samples, t.di_spatial_radius) if mode == "di"
+            else (t.gi_spatial_samples, t.gi_spatial_radius))
+
+
+@pytest.mark.parametrize("mode", ["di", "gi"])
+def test_route_plain_matches_composition(mode):
+    """probe_fused (the route entry's plain version on the CPU) against the
+    composition it replaced: probe_inputs' stack and tables,
+    probe_spatial_plain, contain_xy, the zeroing and the stream advanced
+    by next_u32; every output equal, on strided fields and a bool
+    is_some. A field the kernel could not read in place raises."""
+    surf, res, planes, gi_kw = _route_pass(mode)
+    assert surf.depth.stride() == (2 * ROUTE_W, 2) and surf.normal.stride()[1] == 4
+    cam = cornell_camera(ROUTE_W, ROUTE_H, device="cpu")
+    tries, radius = _tuning_of(mode)
+    seed = 0x5EED + len(mode)
+    xs, ys = screen_xy(cam)
+    state = rng.wnoise_new(seed, xs, ys)
+    got = di.probe_fused(cam, surf, planes, seed, tries, radius, state, **gi_kw)
+
+    stack, dy, dx, kw = di.probe_inputs(surf, planes, seed, tries, radius, **gi_kw)
+    assert stack.shape[0] == pk.PLANES[mode]
+    out = pk.probe_spatial_plain(stack, dy, dx, seed, **kw)
+    cx, cy = contain_xy(cam, xs + out[1], ys + out[0])
+    want_state = state
+    for _ in range(tries):
+        want_state, _ = rng.next_u32(want_state)
+    want = (torch.where(out[2], cx, 0), torch.where(out[2], cy, 0), out[2], want_state,
+            *out[3:])
+    assert len(got) == len(want) == (5 if mode == "gi" else 4)
+    for name, a, b in zip(("rhs_x", "rhs_y", "found", "state", "jac"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    found = got[2].float().mean().item()
+    assert 0.05 < found < 0.95, found
+    if mode == "gi":
+        assert (got[4][got[2]] > 0).all()
+
+    fields = (surf.depth, surf.normal, surf.is_some, *planes)
+    kw = dict(mode=mode, tries=tries, radii=shoff.radius_levels(radius), n_var=2,
+              margin=kw["margin"], depth_tol=0.33, normal_min=0.33, **gi_kw)
+    for k, bad in ((0, torch.zeros(ROUTE_H, ROUTE_W + 1)[:, :ROUTE_W]),
+                   (1, torch.zeros(ROUTE_H, ROUTE_W, 3, dtype=torch.float64)),
+                   (2, surf.is_some.to(torch.float32)), (3, res.m[None])):
+        with pytest.raises(ValueError):
+            pk.probe_route(fields[:k] + (bad,) + fields[k + 1:], seed, state, **kw)
+    with pytest.raises(ValueError):
+        pk.probe_route(fields[:4] if mode == "gi" else fields + fields[1:2], seed, state, **kw)
+
+
+@pytest.mark.parametrize("mode", ["di", "gi"])
+def test_route_stream_advances_by_tries(mode):
+    """The route entry's returned stream: each pixel's wnoise_new(seed, x,
+    y) stepped ``tries`` times by rng.next_u32, bit-equal, an int64 below
+    2^32, for 1 to 8 tries."""
+    surf, _, planes, gi_kw = _route_pass(mode, seed=5)
+    fields = (surf.depth, surf.normal, surf.is_some, *planes)
+    xs, ys = screen_xy(cornell_camera(ROUTE_W, ROUTE_H, device="cpu"))
+    seed = 0xC0FFEE
+    state = rng.wnoise_new(seed, xs, ys)
+    radii = shoff.radius_levels(_tuning_of(mode)[1])
+    for tries in (1, 3, pk.MAX_TRIES):
+        out = pk.probe_route(fields, seed, state, mode=mode, tries=tries, radii=radii, n_var=2,
+                             margin=ROUTE_H - 1, depth_tol=0.33, normal_min=0.33, **gi_kw)
+        want = state
+        for _ in range(tries):
+            want, _ = rng.next_u32(want)
+        assert out[3].dtype == torch.int64 and torch.equal(out[3], want), tries
+        assert int(out[3].max()) <= rng.MASK32 and int(out[3].min()) >= 0
+
+
+@pytest.mark.parametrize("mode", ["di", "gi"])
+def test_tables_drawn_in_one_pass(mode):
+    """draw_tables_plain, the plain twin of the tables each block of the
+    route entry draws, against _draw_probe_tables (one
+    offsets.draw_offset_table per try), bit-equal: at the mode's tuning
+    with the full margin and with a margin that clamps, over seeds that
+    span the u32 range; and the route entry's tables_out equal to them."""
+    tries, radius = _tuning_of(mode)
+    radii = shoff.radius_levels(radius)
+    for seed in (0, 7, 0xBEEF, 0xFFFFFFFF, 0x9E3779B9):
+        for margin in (int(radius), 9):
+            want = di._draw_probe_tables(seed, tries, radii, 2, margin, "cpu")
+            got = pk.draw_tables_plain(seed, tries, radii, 2, margin, "cpu")
+            for a, b in zip(got, want):
+                assert a.dtype == torch.int32 and torch.equal(a, b), (seed, margin)
+            assert int(got[0].abs().max()) <= margin and int(got[1].abs().max()) <= margin
+    surf, _, planes, gi_kw = _route_pass(mode)
+    seed, margin = 0xBEEF, 9
+    tables = torch.full((2, tries * len(radii) * 2), -99, dtype=torch.int32)
+    pk.probe_route((surf.depth, surf.normal, surf.is_some, *planes), seed,
+                   torch.zeros((ROUTE_H, ROUTE_W), dtype=torch.int64), mode=mode, tries=tries,
+                   radii=radii, n_var=2, margin=margin, depth_tol=0.33, normal_min=0.33,
+                   tables_out=tables, **gi_kw)
+    assert torch.equal(tables, torch.stack(di._draw_probe_tables(seed, tries, radii, 2, margin,
+                                                                 "cpu")))
 
 
 # --- the frame's switches -------------------------------------------------
