@@ -89,7 +89,24 @@ Run from the root of the repository:  python3 chip_smoke.py
    rows with copies of 256 winning rows in another slice of their
    1024-row tile and in a later tile: tri equal on every ray), and
    driven by one reference sample of it at 200x152 (counted: A and B
-   once a bounce), whose image must agree with the BVH route's.
+   once a bounce), whose image must agree with the BVH route's. Then the
+   differentiable path on Cornell at 800x608, counted: three train_steps
+   (depth 2, kernels A and B once a bounce) and, after three
+   differentiable realtime frames, restir_train_step with DI only and
+   with the whole frame (A and B as the frames' schedule says); losses
+   and gradients finite, base colour, emissive and light colour nonzero,
+   and a base-colour and a light-colour gradient against central
+   differences of the card's own loss, with ms per step and peak device
+   memory. Then the alpha restart loop: Cornell with an alpha-blended
+   pane across the box, its primaries through trace_closest and
+   trace_anyhit (kernel A on each of the 4 restarts) against the same
+   loop on CPU copies (tri and occlusion equal, t within 1e-5); the
+   alpha soup of tests/test_alpha.py (1,536 triangles, its BVH) on
+   486,400 seeded rays under "stream" (kernel 5 on each restart),
+   "cluster" and "packet" (the torch BVH traversal) against the brute
+   route with the gate raised (at least 99% agreement); one staged
+   reference sample and one realtime frame of the alpha Cornell (kernel A
+   only, the megakernel refused).
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler; kernels A and B also
@@ -152,6 +169,21 @@ FLAT_WIDTH, FLAT_HEIGHT = 200, 152
 #: grid's ragged end: no multiple of 32, less than one wave of the card).
 DEEP_TREE_DEPTH, DEEP_TREE_RAYS = 64, 384
 RAGGED_RAYS = 1000
+#: The differentiable path on Cornell at WIDTH x HEIGHT: TRAIN_STEPS steps
+#: of train_step at TRAIN_DEPTH against a sample at TARGET_SEED x 0.8 (as
+#: tests/test_grad.py builds its target), and of restir_train_step after
+#: RESTIR_WARMUP differentiable frames, each held against central
+#: differences of the card's own loss (tests/test_grad.py's and
+#: tests/test_grad_restir.py's steps and tolerances).
+TRAIN_STEPS, TRAIN_DEPTH, TRAIN_SEED, TARGET_SEED = 3, 2, 7, 123
+RESTIR_WARMUP, RESTIR_SEED = 3, 9
+#: The alpha phase: Cornell with one alpha-blended pane of base alpha
+#: PANE_ALPHA (every ray passes it), and tests/test_alpha.py's soup at
+#: SOUP_TRIS triangles (a quarter on a blend material of alpha 0.3) under
+#: each big-scene strategy, on WIDTH x HEIGHT seeded rays.
+PANE_ALPHA = 0.4
+ALPHA_PANE = ([-0.7, 0.1, 0.7], [0.7, 0.1, 0.7], [0.7, 1.7, 0.7], [-0.7, 1.7, 0.7])
+SOUP_TRIS = 1536
 
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 #: tensor cores, and HBM3 bandwidth.
@@ -1040,11 +1072,8 @@ def drive_flat_dungeon(flat, scene, luts, device) -> dict:
     launches = dict(cuda_lib.LAUNCHES)
     print(f"dungeon without a BVH, {FLAT_WIDTH}x{FLAT_HEIGHT} reference sample launches: "
           f"{launches}", flush=True)
-    want = {"trace_closest_brute": DEPTH + 1, "trace_anyhit_brute": DEPTH + 1}
-    for k in ALL_KERNELS:
-        check(launches.get(k, 0) == want.get(k, 0),
-              f"the BVH-less dungeon launched {k} {launches.get(k, 0)} times, not "
-              f"{want.get(k, 0)}")
+    check_launches(launches, {"trace_closest_brute": DEPTH + 1, "trace_anyhit_brute": DEPTH + 1},
+                   "the BVH-less dungeon")
     check(tuple(img.shape) == (FLAT_HEIGHT, FLAT_WIDTH, 3), "BVH-less dungeon: image shape")
     check(bool(torch.isfinite(img).all()), "BVH-less dungeon: non-finite values")
     check(1e-3 < img.mean().item() < 5.0, "BVH-less dungeon: implausible mean")
@@ -1488,6 +1517,14 @@ ALL_KERNELS = ("trace_sample_megakernel", "trace_closest_brute", "trace_anyhit_b
     k for ks in STRATEGY_KERNELS.values() for k in ks)
 
 
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    """Every kernel launched as often as ``want`` says (0 where it says
+    nothing)."""
+    for k in ALL_KERNELS:
+        check(launches.get(k, 0) == want.get(k, 0),
+              f"{what} launched {k} {launches.get(k, 0)} times, not {want.get(k, 0)}")
+
+
 def drive_strategy(name: str, scene, cam, luts, cfg, ref1, stream_tri) -> dict:
     """Reference mode (1 trace_sample + FRAMES render_reference, depth
     DEPTH, the sky) and RT_FRAMES realtime frames of the dungeon under one
@@ -1516,11 +1553,9 @@ def drive_strategy(name: str, scene, cam, luts, cfg, ref1, stream_tri) -> dict:
         torch.cuda.synchronize()
         ref_launches = dict(cuda_lib.LAUNCHES)
         print(f"dungeon reference-mode launches under {name!r}: {ref_launches}", flush=True)
-        want = {surface: (DEPTH + 1) * (1 + FRAMES), anyhit: (DEPTH + 1) * (1 + FRAMES)}
-        for k in ALL_KERNELS:
-            check(ref_launches.get(k, 0) == want.get(k, 0),
-                  f"{name}: reference mode launched {k} {ref_launches.get(k, 0)} times, "
-                  f"not {want.get(k, 0)}")
+        check_launches(ref_launches, {surface: (DEPTH + 1) * (1 + FRAMES),
+                                      anyhit: (DEPTH + 1) * (1 + FRAMES)},
+                       f"{name}: reference mode")
         for what, x in (("image", img), ("accumulated", avg)):
             check(tuple(x.shape) == (cam.height, cam.width, 3), f"{name} {what}: shape")
             check(bool(torch.isfinite(x).all()), f"{name} {what}: non-finite values")
@@ -1532,11 +1567,8 @@ def drive_strategy(name: str, scene, cam, luts, cfg, ref1, stream_tri) -> dict:
         rt_launches = dict(cuda_lib.LAUNCHES)
         print(f"dungeon realtime launches under {name!r} ({RT_FRAMES} frames): {rt_launches}",
               flush=True)
-        want = realtime_launches(RT_FRAMES, big=(surface, anyhit))
-        for k in ALL_KERNELS:
-            check(rt_launches.get(k, 0) == want.get(k, 0),
-                  f"{name}: the realtime frame launched {k} {rt_launches.get(k, 0)} times, "
-                  f"not {want.get(k, 0)}")
+        check_launches(rt_launches, realtime_launches(RT_FRAMES, big=(surface, anyhit)),
+                       f"{name}: the realtime frame")
         rel = abs(rt_mean.mean().item() - ref1.mean().item()) / ref1.mean().item()
         o, d = pixel_rays(cam, screen_grid(cam))
         flips = (trace_surface(scene, o, d).tri != stream_tri).float().mean().item()
@@ -2020,10 +2052,8 @@ def drive_probe_route(scene, cam, seed0: int, cfg, luts, off_mean, ref1, tol: fl
         mean, state = drive_realtime(scene, cam, seed0, cfg, luts)
         torch.cuda.synchronize()
         launches = dict(cuda_lib.LAUNCHES)
-    want = {**realtime_launches(RT_FRAMES, big=big), **probe_launches(RT_FRAMES)}
-    for k in ALL_KERNELS:
-        check(launches.get(k, 0) == want.get(k, 0),
-              f"the probe route launched {k} {launches.get(k, 0)} times, not {want.get(k, 0)}")
+    check_launches(launches, {**realtime_launches(RT_FRAMES, big=big),
+                              **probe_launches(RT_FRAMES)}, "the probe route")
     rel_ref = abs(mean.mean().item() - ref1.mean().item()) / ref1.mean().item()
     rel_off = abs(mean.mean().item() - off_mean.mean().item()) / off_mean.mean().item()
     print(f"probe route ({RT_FRAMES} frames, launches {launches}): mean image "
@@ -2116,6 +2146,356 @@ def time_probe_stages(scene, cam, state, seed0: int, cfg=None, luts=None) -> tup
             stages, state = time_stages(scene, cam, state, seed0 + 6 * i, cfg, luts)
         turns.append({"probe_kernel": on, "di_ms": stages["di"], "gi_ms": stages["gi"]})
     return turns, state
+
+
+def train_launches(frames, needs_gi: bool = True) -> dict:
+    """The launches of differentiable realtime frames (every closest hit
+    through kernel A, every any hit through kernel B) at frame numbers
+    ``frames``: as realtime_launches counts them, with kernel A where the
+    fused route takes kernel 4."""
+    a = b = 0
+    for f in frames:
+        a += 1 + (needs_gi and gi_sampling_frame(f))
+        b += 4 + (needs_gi and (1 if gi_sampling_frame(f) else 2))
+    return {"trace_closest_brute": a, "trace_anyhit_brute": b}
+
+
+def finite_grads(grads, what: str, nonzero=("base_color", "emissive", "light_color")) -> dict:
+    """Checks every gradient field finite and the ``nonzero`` ones not all
+    zero; returns each field's largest magnitude."""
+    from strolle_tpu_torch.models import train
+
+    out = {}
+    for f in train.FIELDS:
+        g = getattr(grads, f)
+        check(bool(torch.isfinite(g).all()), f"{what}: {f} gradient not finite")
+        out[f] = g.abs().max().item()
+    for f in nonzero:
+        check(out[f] > 0, f"{what}: {f} gradient is zero")
+    return out
+
+
+def central_difference(loss_fn, params, field: str, index, eps: float) -> float:
+    """(loss(p + eps) - loss(p - eps)) / (2 eps) in one component."""
+    def at(step):
+        x = getattr(params, field).clone()
+        x[index] += step
+        with torch.no_grad():
+            return loss_fn(params.replace(**{field: x})).item()
+
+    return (at(eps) - at(-eps)) / (2 * eps)
+
+
+def timed_steps(step, n: int) -> tuple[list, float]:
+    """Runs ``step`` n times, each timed on the host clock between
+    synchronisations; returns (the results, ms of each) and the peak of
+    allocated device memory over them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        out.append(step(i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, torch.cuda.max_memory_allocated()
+
+
+def drive_train(scene, cam) -> dict:
+    """TRAIN_STEPS train_steps on Cornell at WIDTH x HEIGHT, depth
+    TRAIN_DEPTH, with the counts set to 0 before and read after: kernels
+    A and B once a bounce each, no other kernel; the loss and every
+    gradient finite, base colour, emissive and light colour nonzero; the
+    first step's base-colour (0, 0) and light-colour (0, 1) gradients
+    within tests/test_grad.py's tolerance of central differences of the
+    card's own loss. Returns the launches, ms per step and peak memory."""
+    from strolle_tpu_torch.models import train
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    target = trace_sample(scene, cam, TARGET_SEED, depth=TRAIN_DEPTH, include_sky=False) * 0.8
+    params0 = train.params_from_scene(scene)
+    state = {"params": params0}
+
+    def step(_):
+        loss, state["params"], grads = train.train_step(state["params"], scene, cam, target,
+                                                        TRAIN_SEED, depth=TRAIN_DEPTH)
+        return loss, grads
+
+    cuda_lib.reset_launch_counts()
+    results, ms, peak = timed_steps(step, TRAIN_STEPS)
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"train: {TRAIN_STEPS} train_steps ({WIDTH}x{HEIGHT}, depth {TRAIN_DEPTH}) launches "
+          f"{launches}, ms per step {ms}, peak memory {peak / 2**20:.1f} MiB, losses "
+          f"{[r[0].item() for r in results]}", flush=True)
+    n = TRAIN_STEPS * (TRAIN_DEPTH + 1)
+    check_launches(launches, {"trace_closest_brute": n, "trace_anyhit_brute": n}, "train_step")
+    for i, (loss, grads) in enumerate(results):
+        check(bool(torch.isfinite(loss)), f"train step {i}: loss not finite")
+        mags = finite_grads(grads, f"train step {i}")
+    check(results[-1][0].item() < results[0][0].item(), "train_step did not lower the loss")
+
+    def loss_fn(p):
+        return train.render_loss(p, scene, cam, target, TRAIN_SEED, TRAIN_DEPTH)
+
+    fd = {}
+    for field, index in (("base_color", (0, 0)), ("light_color", (0, 1))):
+        g = getattr(results[0][1], field)[index].item()
+        f = central_difference(loss_fn, params0, field, index, 1e-3)
+        fd[f"{field}{list(index)}"] = {"grad": g, "fd": f}
+        check(math.isclose(g, f, rel_tol=0.05, abs_tol=1e-4),
+              f"train: {field}{index} gradient {g} against central difference {f}")
+    prof = profile_frames(lambda: step(0), frames=1)
+    print(f"train: gradients against central differences {fd}; largest gradients {mags}; "
+          f"profile of one step {prof}", flush=True)
+    return {"launches": launches, "ms_per_step": ms, "peak_mib": peak / 2**20, "fd": fd,
+            "losses": [r[0].item() for r in results], "profile": prof}
+
+
+def drive_restir_train(scene, cam) -> dict:
+    """RESTIR_WARMUP differentiable realtime frames on Cornell at WIDTH x
+    HEIGHT, then restir_train_step with DI only (needs_gi=False, SVGF on)
+    and with the whole frame, all with the counts set to 0 before and read
+    after: kernels A and B as the differentiable frames' schedule says, no
+    other kernel; the losses and gradients finite, base colour and light
+    colour nonzero; DI's base-colour (0, 1) gradient within
+    tests/test_grad_restir.py's tolerance of central differences of the
+    card's own loss. Returns the launches, ms per step and peak memory."""
+    from strolle_tpu_torch.models import train
+    from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    cfg = RenderConfig(differentiable=True)
+    configs = {"di": RenderConfig(differentiable=True, needs_gi=False), "full": cfg}
+    target = torch.full((cam.height, cam.width, 3), 0.25, device=cam.device)
+    params = train.params_from_scene(scene)
+    cuda_lib.reset_launch_counts()
+    state = init_state(cam, device=cam.device)
+    for f in range(RESTIR_WARMUP):
+        ch, state = render_frame(scene, cam, state, f, cfg)
+        check(bool(torch.isfinite(ch["image"]).all()), f"differentiable frame {f}: not finite")
+    names = list(configs)
+    results, ms, peak = timed_steps(
+        lambda i: train.restir_train_step(params, scene, cam, state, target, RESTIR_SEED,
+                                          config=configs[names[i]]), len(names))
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"restir_train: {RESTIR_WARMUP} differentiable frames + restir_train_step "
+          f"({', '.join(names)}) launches {launches}, ms per step {dict(zip(names, ms))}, "
+          f"peak memory {peak / 2**20:.1f} MiB", flush=True)
+    want = train_launches(range(RESTIR_WARMUP))
+    for k, v in train_launches([RESTIR_WARMUP], needs_gi=False).items():
+        want[k] += v
+    for k, v in train_launches([RESTIR_WARMUP]).items():
+        want[k] += v
+    check_launches(launches, want, "restir_train_step")
+    mags = {}
+    for name, (loss, new, grads) in zip(names, results):
+        check(bool(torch.isfinite(loss)), f"restir_train_step ({name}): loss not finite")
+        mags[name] = finite_grads(grads, f"restir_train_step ({name})",
+                                  nonzero=("base_color", "light_color"))
+    cfg_di = configs["di"]
+
+    def loss_fn(p):
+        return train.restir_render_loss(p, scene, cam, state, target, RESTIR_SEED, cfg_di)
+
+    g = results[0][2].base_color[0, 1].item()
+    f = central_difference(loss_fn, params, "base_color", (0, 1), 2e-3)
+    print(f"restir_train: DI base_color[0, 1] gradient {g} against central difference {f}; "
+          f"largest gradients {mags}", flush=True)
+    check(math.isclose(g, f, rel_tol=0.05, abs_tol=1e-4),
+          f"restir_train: base_color[0, 1] gradient {g} against central difference {f}")
+    prof = profile_frames(lambda: train.restir_train_step(params, scene, cam, state, target,
+                                                          RESTIR_SEED), frames=1)
+    print(f"restir_train: profile of one whole-frame step {prof}", flush=True)
+    return {"launches": launches, "ms_per_step": dict(zip(names, ms)), "peak_mib": peak / 2**20,
+            "fd": {"base_color[0, 1]": {"grad": g, "fd": f}},
+            "losses": {n: r[0].item() for n, r in zip(names, results)}, "profile": prof}
+
+
+def alpha_cornell(scene, alpha: float = PANE_ALPHA):
+    """Cornell with one pane (ALPHA_PANE, across the front of the box) on
+    an alpha-blended material of base alpha ``alpha``."""
+    from strolle_tpu_torch.scene.build import MeshBuilder
+    from strolle_tpu_torch.scene.types import make_materials
+
+    dev = scene.geometry.positions.device
+    b = MeshBuilder()
+    b.add_quad(*ALPHA_PANE, scene.materials.num_materials)
+    pane = b.build(dev)
+    g, m = scene.geometry, scene.materials
+    geom = dataclasses.replace(g, **{
+        f.name: torch.cat([getattr(g, f.name), getattr(pane, f.name)])
+        for f in dataclasses.fields(g)})
+    blend = make_materials([{"base_color": [0.9, 0.5, 0.2, alpha], "alpha_blend": 1}],
+                           device=dev)
+    mats = dataclasses.replace(m, **{
+        f.name: torch.cat([getattr(m, f.name), getattr(blend, f.name)])
+        for f in dataclasses.fields(m) if f.name != "tex_channels"})
+    return scene.replace(geometry=geom, materials=mats, has_alpha=True)
+
+
+def alpha_soup(device):
+    """tests/test_alpha.py's soup (_alpha_soup_scene, seed 23) at SOUP_TRIS
+    triangles, a quarter on a blend material of alpha 0.3, with its BVH
+    and cluster rows."""
+    from strolle_tpu_torch.bvh import scene_with_bvh
+    from strolle_tpu_torch.scene.types import Geometry, Scene, make_lights, make_materials
+
+    rs = np.random.RandomState(23)
+    n = SOUP_TRIS
+    centers = rs.uniform(-3.0, 3.0, (n, 1, 3)).astype(np.float32)
+    verts = centers + rs.uniform(-0.4, 0.4, (n, 3, 3)).astype(np.float32)
+    nrm = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    mid = (rs.uniform(0, 1, n) < 0.25).astype(np.int32)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    geom = Geometry(positions=t(verts), normals=t(np.repeat(nrm[:, None, :], 3, axis=1)),
+                    uvs=t(np.zeros((n, 3, 2))), tangents=t(np.zeros((n, 3, 4))),
+                    material_id=t(mid, torch.int32))
+    mats = make_materials([{"base_color": [0.8, 0.8, 0.8, 1.0]},
+                           {"base_color": [1.0, 1.0, 1.0, 0.3], "alpha_blend": 1}],
+                          device=device)
+    return scene_with_bvh(Scene(geometry=geom, materials=mats,
+                                lights=make_lights([], device=device), atlas=None,
+                                sun_azimuth=0.0, sun_altitude=-1.0, has_alpha=True))
+
+
+def soup_rays(n: int, device, seed: int = 3):
+    """tests/test_alpha.py's soup rays (_soup_rays): origins in [-4, 4]^3,
+    uniform directions, and t_max 2 (its shadow-ray length)."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.tensor(o, device=device), torch.tensor(d, device=device),
+            torch.full((n,), 2.0, device=device))
+
+
+def alpha_restarts(scene, o, d, t_max, what: str) -> dict:
+    """trace_closest and trace_anyhit through the restart loop, with the
+    counts set to 0 before and read after; returns the hits, the
+    occlusion and the launches of the MAX_ALPHA_RESTARTS restarts."""
+    from strolle_tpu_torch.ops import trace
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    cuda_lib.reset_launch_counts()
+    hit = trace.trace_closest(scene, o, d)
+    occ = trace.trace_anyhit(scene, o, d, t_max)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"alpha, {what}: {o.shape[0]} rays, launches {launches} "
+          f"({trace.MAX_ALPHA_RESTARTS} restarts each of trace_closest and trace_anyhit)",
+          flush=True)
+    return {"tri": hit.tri, "t": hit.t, "occ": occ, "launches": launches}
+
+
+def drive_alpha(scene, cam, staged, device) -> dict:
+    """The alpha restart loop. Cornell with a pane of alpha PANE_ALPHA:
+    its WIDTH x HEIGHT primaries through trace_closest and trace_anyhit
+    (t_max seeded in [1.5, 5], before and past the pane), counted (kernel
+    A on every restart, 2 x MAX_ALPHA_RESTARTS launches, no other kernel),
+    held against the same loop on CPU copies of the inputs (the plain
+    versions): tri and occlusion equal, t within 1e-5; no hit on the pane.
+    The soup (SOUP_TRIS triangles, its BVH) on WIDTH x HEIGHT seeded rays
+    under "stream" (kernel 5 on every restart), "cluster" and "packet"
+    (the torch BVH traversal, their closest-hit route: no launch), each
+    held against the brute route with the gate raised over the soup
+    (kernel A): tri and occlusion on at least 99% of the rays, t within
+    1e-4 where tri agrees. Then one staged reference sample (depth DEPTH)
+    and one realtime frame of the alpha Cornell, counted: kernel A only,
+    finite; the sample's mean within 1% of Cornell's (``staged``, the same
+    seed): the pane lets every ray through. Returns the launches."""
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.models.restir import init_state, render_frame_fused
+    from strolle_tpu_torch.ops import trace
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.scene.cornell import cornell_box
+
+    out = {}
+    n = trace.MAX_ALPHA_RESTARTS
+    ascene = alpha_cornell(scene)
+    o, d = pixel_rays(cam, screen_grid(cam))
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    t_max = torch.tensor(np.random.RandomState(11).uniform(1.5, 5.0, o.shape[0]).astype(
+        np.float32), device=device)
+    card = alpha_restarts(ascene, o, d, t_max, "Cornell with a blend pane, primaries")
+    check_launches(card["launches"], {"trace_closest_brute": 2 * n}, "the alpha loop on Cornell")
+    out["cornell"] = card["launches"]
+    cpu = alpha_restarts(alpha_cornell(cornell_box(device="cpu")), o.cpu(), d.cpu(),
+                         t_max.cpu(), "the same on CPU copies (plain versions)")
+    tri_off = (card["tri"].cpu() != cpu["tri"]).sum().item()
+    occ_off = (card["occ"].cpu() != cpu["occ"]).sum().item()
+    hit = cpu["tri"] >= 0
+    t_err = (card["t"].cpu()[hit] - cpu["t"][hit]).abs().max().item()
+    pane = ascene.geometry.num_triangles - 2
+    on_pane = (trace.trace_closest(ascene.replace(has_alpha=False), o, d).tri >= pane)
+    on_pane = on_pane.float().mean().item()
+    occluded = card["occ"].float().mean().item()
+    print(f"alpha, Cornell: card vs CPU {tri_off} tri and {occ_off} occlusion mismatches, t "
+          f"max |err| {t_err:.3g}; {on_pane:.4f} of the primaries meet the pane first, "
+          f"{occluded:.4f} occluded", flush=True)
+    check(tri_off == 0 and occ_off == 0 and t_err <= 1e-5,
+          "the alpha loop on the card disagrees with its plain version")
+    check(not bool((card["tri"] >= pane).any()), "a primary stopped on the blend pane")
+    check(on_pane > 0.3 and 0 < occluded < 1, "degenerate alpha rays")
+    out["cornell_trace_closest_ms"] = {
+        "alpha": time_ms(lambda: trace.trace_closest(ascene, o, d), warmup=1, iters=5),
+        "opaque": time_ms(lambda: trace.trace_closest(scene, o, d), warmup=1, iters=5)}
+    print(f"alpha, Cornell: trace_closest ms (4 restarts / Cornell without the pane) "
+          f"{out['cornell_trace_closest_ms']}", flush=True)
+
+    soup = alpha_soup(device)
+    so, sd, st = soup_rays(WIDTH * HEIGHT, device)
+    with_gate = trace.BRUTE_FORCE_MAX_TRIS
+    trace.BRUTE_FORCE_MAX_TRIS = 2 * SOUP_TRIS
+    try:
+        brute = alpha_restarts(soup, so, sd, st, f"the soup ({SOUP_TRIS} triangles), brute")
+    finally:
+        trace.BRUTE_FORCE_MAX_TRIS = with_gate
+    check_launches(brute["launches"], {"trace_closest_brute": 2 * n}, "the soup's brute route")
+    out["soup_brute"] = brute["launches"]
+    for name in ("stream", "cluster", "packet"):
+        with strategy(name):
+            big = alpha_restarts(soup, so, sd, st, f"the soup under {name!r}")
+        want = {"stream_trace_surface": 2 * n} if name == "stream" else {}
+        check_launches(big["launches"], want, f"the soup's alpha loop under {name!r}")
+        same = big["tri"] == brute["tri"]
+        agree = same.float().mean().item()
+        occ = (big["occ"] == brute["occ"]).float().mean().item()
+        m = same & (brute["tri"] >= 0)
+        t_err = (big["t"][m] - brute["t"][m]).abs().max().item()
+        print(f"alpha, the soup under {name!r} vs brute: tri {agree:.5f}, occlusion {occ:.5f}, "
+              f"t max |err| {t_err:.3g}", flush=True)
+        check(agree >= 0.99 and occ >= 0.99 and t_err <= 1e-4,
+              f"the soup's alpha loop under {name!r} disagrees with the brute route")
+        out[f"soup_{name}"] = big["launches"]
+    check((brute["tri"] >= 0).float().mean().item() > 0.2, "the soup's rays mostly miss")
+
+    cuda_lib.reset_launch_counts()
+    img = trace_sample(ascene, cam, SEED, depth=DEPTH, include_sky=False)
+    torch.cuda.synchronize()
+    out["staged_sample"] = dict(cuda_lib.LAUNCHES)
+    check_launches(out["staged_sample"], {"trace_closest_brute": 2 * n * (DEPTH + 1)},
+                   "the alpha Cornell's reference sample")
+    cuda_lib.reset_launch_counts()
+    ch, _ = render_frame_fused(ascene, cam, init_state(cam, device=device), 0)
+    torch.cuda.synchronize()
+    out["realtime_frame"] = dict(cuda_lib.LAUNCHES)
+    check(set(out["realtime_frame"]) == {"trace_closest_brute"},
+          f"the alpha Cornell's realtime frame launched {out['realtime_frame']}")
+    for what, x in (("reference sample", img), ("realtime frame", ch["image"])):
+        check(bool(torch.isfinite(x).all()), f"alpha Cornell {what}: non-finite values")
+    rel = abs(img.mean().item() - staged.mean().item()) / staged.mean().item()
+    print(f"alpha Cornell: reference sample launches {out['staged_sample']}, mean "
+          f"{img.mean().item():.5f} vs Cornell's {staged.mean().item():.5f}; realtime frame "
+          f"launches {out['realtime_frame']}, mean {ch['image'].mean().item():.5f}", flush=True)
+    check(rel < 0.01, f"the alpha Cornell's sample is {rel:.4f} off Cornell's")
+    return out
 
 
 T_START = time.perf_counter()
@@ -2240,11 +2620,9 @@ def main() -> int:
     torch.cuda.synchronize()
     fused_launches = dict(cuda_lib.LAUNCHES)
     print(f"staged loop launches, use_pallas=None (2 samples): {fused_launches}", flush=True)
-    want = {"trace_surface": 2 * (DEPTH + 1), "trace_anyhit_brute": 2 * (DEPTH + 1)}
-    for k in ALL_KERNELS:
-        check(fused_launches.get(k, 0) == want.get(k, 0),
-              f"staged loop (use_pallas=None) launched {k} {fused_launches.get(k, 0)} times, "
-              f"not {want.get(k, 0)}")
+    check_launches(fused_launches, {"trace_surface": 2 * (DEPTH + 1),
+                                    "trace_anyhit_brute": 2 * (DEPTH + 1)},
+                   "staged loop (use_pallas=None)")
     check(bool(torch.isfinite(staged_sky).all()), "staged loop with the sky: non-finite values")
     # the same hits, attributes resolved in the kernel instead of by
     # surface_at: a few last bits, which may flip a rare decision
@@ -2392,6 +2770,14 @@ def main() -> int:
     hold_ties(copies, fo, fd, "the dungeon's rows, copies in other slices and a later tile",
               copied)
     flat_launches = drive_flat_dungeon(flat, dg, dluts, device)
+
+    # --- 5f-5h. the differentiable path and the alpha restart loop ---------
+    phase("5f")
+    train_info = drive_train(scene, cam)
+    phase("5g")
+    restir_train_info = drive_restir_train(scene, cam)
+    phase("5h")
+    alpha_info = drive_alpha(scene, cam, staged, device)
 
     # --- 6. timings -----------------------------------------------------
     phase("6")
@@ -2628,10 +3014,18 @@ def main() -> int:
         "probe_profiles_switch_on": probe_profiles,
         "probe_route": probe_route,
         "heatmap": heatmap_info,
+        "train": train_info,
+        "restir_train": restir_train_info,
+        "alpha": alpha_info,
         "total_s": time.perf_counter() - T_START,
     }
     print("timings: " + json.dumps(timings), flush=True)
 
+    # the launches of the differentiable and alpha phases (5f-5h)
+    new_path_launches = collections.Counter()
+    alpha_counts = [v for k, v in alpha_info.items() if not k.endswith("_ms")]
+    for counts in (train_info["launches"], restir_train_info["launches"], *alpha_counts):
+        new_path_launches.update(counts)
     kernels = [
         {
             "name": "trace_sample_megakernel", "route": "cuda",
@@ -2645,7 +3039,8 @@ def main() -> int:
             "name": "trace_closest_brute", "route": "cuda",
             "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
             "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:280",
-            "launches": launches["trace_closest_brute"] + flat_launches["trace_closest_brute"],
+            "launches": (launches["trace_closest_brute"] + flat_launches["trace_closest_brute"]
+                         + new_path_launches["trace_closest_brute"]),
             "max_abs_err": err["A"], "ms": ms_a, "plain_ms": plain_a,
             "bound_ms": bound_a, "bound_by": by_a, "library_ms": None,
             "over_1024_rows": {"rows": brute_flat["rows"], "rays": fn, **brute_flat["A"]},
@@ -2655,7 +3050,8 @@ def main() -> int:
             "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
             "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:378",
             "launches": (launches["trace_anyhit_brute"] + rt_launches["trace_anyhit_brute"]
-                         + flat_launches["trace_anyhit_brute"]),
+                         + flat_launches["trace_anyhit_brute"]
+                         + new_path_launches["trace_anyhit_brute"]),
             "max_abs_err": err["B"], "ms": ms_b, "plain_ms": plain_b,
             "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
         },
@@ -2677,7 +3073,7 @@ def main() -> int:
             "source": "strolle_tpu_torch/csrc/stream_kernels.cu",
             "replaces": "strolle_tpu/ops/pallas/stream_kernels.py:"
                         + ("660" if key == "5" else "736"),
-            "launches": dg_launches[name] + drt_launches[name],
+            "launches": dg_launches[name] + drt_launches[name] + new_path_launches[name],
             "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
             "bound_ms": cost[key]["bound_ms"], "bound_by": cost[key]["bound_by"],
             "walk_bound_ms": cost[key]["walk_bound_ms"], "library_ms": None,

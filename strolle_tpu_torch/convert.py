@@ -4,8 +4,9 @@ The JAX package's Scene (with its atlas image, BvhArrays and cluster
 rows), Camera, RefAccumulator, the realtime frame's
 RenderState (with its reservoirs, denoiser states, previous Surface and
 Camera) and AtmosphereLuts travel as nested dicts of numpy arrays
-(field name -> array, or a dict for a nested dataclass), so this module
-never imports JAX. ``*_to_arrays`` go the other way, for round trips.
+(field name -> array, or a dict for a nested dataclass), and so do the
+JAX package's TrainableParams, so this module never imports JAX.
+``*_to_arrays`` go the other way, for round trips.
 
 Dtypes: float32 and int32 stay; bool stays; the JAX package's uint32
 RNG states become int64 tensors holding the same value (the port's u32
@@ -25,6 +26,7 @@ from .denoise.svgf import DenoiserState
 from .device import resolve_device
 from .models.reference import RefAccumulator
 from .models.restir import RenderState
+from .models.train import TrainableParams
 from .ops.hit import Surface
 from .restir.gi import GiReservoirs
 from .restir.reservoir import DiReservoirs
@@ -218,3 +220,13 @@ def render_state_to_arrays(state: RenderState) -> dict:
 def luts_from_arrays(arrays: dict, device=None) -> AtmosphereLuts:
     """The port's AtmosphereLuts from a JAX AtmosphereLuts' fields."""
     return dataclass_from_arrays(AtmosphereLuts, arrays, device)
+
+
+def params_from_arrays(arrays: dict, device=None) -> TrainableParams:
+    """The port's TrainableParams from a JAX TrainableParams' fields, so
+    that both packages differentiate the same parameters."""
+    return dataclass_from_arrays(TrainableParams, arrays, device)
+
+
+def params_to_arrays(params: TrainableParams) -> dict:
+    return dataclass_to_arrays(params)

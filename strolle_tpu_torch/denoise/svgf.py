@@ -15,8 +15,10 @@ The JAX package's deviations from the reference are reproduced: the
 jitter moves each sampled field once per pass (each tap reads the
 jitter at its own pixel), and the luma-sigma ramp saturates at var = 1.
 Fixed-offset taps are clamped-index gathers here (the JAX package's
-edge pad + slice). The custom VJP of the à-trous filter belongs to the
-differentiable path, a later slice.
+edge pad + slice). The à-trous iteration carries the JAX package's
+custom VJP (``_WaveletCore``): its backward pass freezes the
+edge-stopping weights and pushes the colour cotangent through the exact
+adjoint of the remaining linear filter.
 """
 
 from __future__ import annotations
@@ -153,43 +155,86 @@ def _jitter_coords(jy, jx):
     return yq, xq
 
 
-def _wavelet(stride: int, strength: float, sigma_ab, c, var, depth, normal, skyf, jitter):
+def _wavelet_impl(stride: int, strength: float, sigma_ab, c_lin, c_w, var, depth, normal, skyf,
+                  jitter):
     """One à-trous iteration: 3x3 taps at ``stride`` over the jittered
-    fields, edge-stopped; sky pixels pass through."""
+    fields, edge-stopped; sky pixels pass through. ``c_lin`` is the colour
+    the filter is applied to, ``c_w`` the colour its edge-stopping weights
+    are computed from: the same tensor in the forward pass, while the
+    backward pass applies the filter to the cotangent with ``c_w``
+    frozen."""
     sky = skyf > 0.5
     a, b = sigma_ab
     # the reference's ramp extrapolates above var = 1; saturated here as
     # in the JAX package, so sigma stays in [b, a]
     luma_sigma = vm.lerp(a, b, vm.saturate(torch.sqrt(torch.clamp(var, min=0.0))))
     depth_sigma = 0.33 / strength
-    center_luma = vm.luma(c)
+    center_luma = vm.luma(c_w)
+    same = c_w is c_lin
 
     sum_w = torch.ones_like(var)
-    sum_c = c
+    sum_c = c_lin
     sum_v = var
-    fields = (c, var, depth, normal, skyf)
+    fields = (c_lin, var, depth, normal, skyf) + (() if same else (c_w,))
     if jitter is not None:
         yq, xq = _jitter_coords(*jitter)
         fields = tuple(f[yq, xq] for f in fields)
-    j_c, j_var, j_depth, j_normal, j_skyf = fields
+    j_lin, j_var, j_depth, j_normal, j_skyf = fields[:5]
+    j_w = j_lin if same else fields[5]
     for oy in (-1, 0, 1):
         for ox in (-1, 0, 1):
             if oy == 0 and ox == 0:
                 continue
-            s_c, inb = _shift(j_c, oy * stride, ox * stride)
+            s_lin, inb = _shift(j_lin, oy * stride, ox * stride)
+            s_w = s_lin if same else _shift(j_w, oy * stride, ox * stride)[0]
             s_var, _ = _shift(j_var, oy * stride, ox * stride)
             s_depth, _ = _shift(j_depth, oy * stride, ox * stride)
             s_normal, _ = _shift(j_normal, oy * stride, ox * stride)
             s_skyf, _ = _shift(j_skyf, oy * stride, ox * stride)
-            wgt = _sample_weight(center_luma, depth, normal, vm.luma(s_c), s_depth, s_normal,
+            wgt = _sample_weight(center_luma, depth, normal, vm.luma(s_w), s_depth, s_normal,
                                  luma_sigma, depth_sigma)
             wgt = torch.where(inb & (s_skyf < 0.5) & (wgt > 0.0), wgt, 0.0)
             sum_w = sum_w + wgt
-            sum_c = sum_c + wgt[..., None] * s_c
+            sum_c = sum_c + wgt[..., None] * s_lin
             sum_v = sum_v + wgt * wgt * s_var
     out_c = sum_c / sum_w[..., None]
     out_v = sum_v / (sum_w * sum_w)
-    return torch.where(sky[..., None], c, out_c), torch.where(sky, var, out_v)
+    return torch.where(sky[..., None], c_lin, out_c), torch.where(sky, var, out_v)
+
+
+class _WaveletCore(torch.autograd.Function):
+    """The à-trous iteration with the JAX package's custom VJP
+    (``_wavelet_core``): the forward value is ``_wavelet_impl``'s; the
+    backward pass freezes the edge-stopping weights computed from the
+    primal inputs and pushes the colour cotangent through the exact adjoint
+    of the remaining linear filter. Variance, depth, normal and sky get
+    zero cotangent, and the variance output passes none back."""
+
+    @staticmethod
+    def forward(ctx, color, var, depth, normal, skyf, stride, strength, sigma_ab, jitter):
+        ctx.save_for_backward(color, var, depth, normal, skyf)
+        ctx.statics = (stride, strength, sigma_ab, jitter)
+        return _wavelet_impl(stride, strength, sigma_ab, color, color, var, depth, normal, skyf,
+                             jitter)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_c, g_v):
+        color, var, depth, normal, skyf = ctx.saved_tensors
+        stride, strength, sigma_ab, jitter = ctx.statics
+        with torch.enable_grad():
+            # the filter is linear in c_lin: its adjoint at any point
+            c = color.detach().requires_grad_()
+            out_c, _ = _wavelet_impl(stride, strength, sigma_ab, c, color, var, depth, normal,
+                                     skyf, jitter)
+            (g_color,) = torch.autograd.grad(out_c, c, g_c)
+        return g_color, None, None, None, None, None, None, None, None
+
+
+def _wavelet(stride: int, strength: float, sigma_ab, c, var, depth, normal, skyf, jitter):
+    """One à-trous iteration (``_wavelet_impl``) with the frozen-weight
+    adjoint as its gradient."""
+    return _WaveletCore.apply(c, var, depth, normal, skyf, stride, strength, sigma_ab, jitter)
 
 
 def denoise_channel(samples, surf: Surface, reproj: Reprojection, state: DenoiserState,

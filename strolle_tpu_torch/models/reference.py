@@ -31,7 +31,7 @@ from ..ops.kernels.ref_kernel import (
     trace_sample_megakernel,
 )
 from ..ops.lights import gather_light, radiance, shadow_ray_wnoise
-from ..ops.trace import BRUTE_FORCE_MAX_TRIS, check_scene_supported, trace_anyhit, trace_surface
+from ..ops.trace import BRUTE_FORCE_MAX_TRIS, trace_anyhit, trace_surface
 from ..scene.types import Scene
 from ..sky.atmosphere import luts_for, sample_atmosphere, sample_sky, sun_direction
 
@@ -88,7 +88,6 @@ def sample_pixels(
     package's meaning: False takes the staged loop with trace_closest +
     surface_at (the differentiable route); None and True let the
     megakernel run where it fits and pass on to ``trace_surface``."""
-    check_scene_supported(scene)
     fits = megakernel_fits(scene, include_sky, luts) and use_pallas is not False
     if use_megakernel and not fits:
         raise ValueError("use_megakernel=True: the megakernel takes no sky, atlas, alpha, "

@@ -27,9 +27,11 @@ def _wrap(t: torch.Tensor) -> torch.Tensor:
 
 def packed_corner_matrix(image: torch.Tensor) -> torch.Tensor:
     """[A*A, 4] int32 rows: the texel and its clamp-shifted x+1 / y+1 /
-    x+1,y+1 neighbours, each RGBA8-packed (R in the low byte)."""
+    x+1,y+1 neighbours, each RGBA8-packed (R in the low byte). The table
+    is made from the detached image and carries no gradient, as the JAX
+    package's (nothing differentiates with respect to atlas texels)."""
     h, w = image.shape[0], image.shape[1]
-    q = torch.round(torch.clamp(image, 0.0, 1.0) * 255.0).to(torch.int64)
+    q = torch.round(torch.clamp(image.detach(), 0.0, 1.0) * 255.0).to(torch.int64)
     p = (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24)) & MASK32
     p = torch.where(p >= 2**31, p - 2**32, p).to(torch.int32)
     sx = torch.cat([p[:, 1:], p[:, -1:]], dim=1)
@@ -47,7 +49,8 @@ def _unpack_rgba8(u: torch.Tensor) -> torch.Tensor:
 def sample_atlas_bilinear(atlas, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear fetch from ``atlas`` (scene.types.Atlas, image [A, A, 4])
     at normalised uv [..., 2]: one gather of the packed corner table at
-    the floor corner. Gradients flow through the blend weights only."""
+    the floor corner. Gradients flow through the blend weights (uv) only:
+    the corner table is integer texels made from the detached image."""
     h, w = atlas.image.shape[0], atlas.image.shape[1]
     x = uv[..., 0] * w - 0.5
     y = uv[..., 1] * h - 0.5

@@ -18,8 +18,14 @@ version on the CPU. Set the strategy as in the JAX package::
     import strolle_tpu_torch.ops.trace as trace
     trace.BIG_SCENE_STRATEGY = "packet"
 
-The alpha restart loop and the mesh sharding context are later slices
-of the port and raise NotImplementedError here.
+A scene with alpha-blended materials (``has_alpha``) takes the JAX
+package's restart loop in ``trace_closest`` and ``trace_anyhit``: a hit
+whose sampled base-colour alpha is below 1 is skipped by restarting the
+ray just past it, MAX_ALPHA_RESTARTS times, each restart one launch of
+the opaque closest-hit route above. ``trace_surface`` takes
+``trace_closest`` + ``surface_at`` on such a scene, as the fused kernels
+have no alpha test. The mesh sharding context is a later slice of the
+port and raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -31,11 +37,12 @@ import torch
 from ..bvh.traverse import trace_anyhit_bvh, trace_closest_bvh
 from ..scene.types import Scene
 from .hit import NUDGE_OFFSET, Surface, TriangleHit, material_at, surface_at
-from .intersect import ray_triangle
+from .intersect import fma, ray_triangle
 from .kernels import bvh_kernels as bk
 from .kernels import cluster_kernels as ck
 from .kernels import stream_kernels as sk
 from .kernels import trace_kernels as tk
+from .texture import sample_material_channel
 
 BRUTE_FORCE_MAX_TRIS = tk.MAX_TRIS
 #: The big-scene strategy: "stream", "cluster", "packet" or "jnp", as the
@@ -82,22 +89,13 @@ def cluster_rows(scene: Scene) -> torch.Tensor:
                              scene.geometry.positions.detach())
 
 
-def check_scene_supported(scene: Scene) -> None:
-    """Raises for the scene features that later slices of the port add."""
-    if scene.has_alpha:
-        raise NotImplementedError(
-            "alpha-blended materials (the alpha restart loop) are a later slice of the port "
-            "(ROADMAP.md section 1, item 4)"
-        )
-
-
 def trace_rows_sharded(mesh):
     """The JAX package's context that shards ray rows over a device mesh;
     the multi-device layer is a later slice of the port (ROADMAP.md
-    section 1, item 12)."""
+    section 1, item 5)."""
     raise NotImplementedError(
         "trace_rows_sharded: the multi-device layer is a later slice of the port "
-        "(ROADMAP.md section 1, item 12)"
+        "(ROADMAP.md section 1, item 5)"
     )
 
 
@@ -169,22 +167,101 @@ def _trace_closest_kernel(scene: Scene, o, d) -> TriangleHit:
     )
 
 
+#: Transparent layers skipped per ray, as in the JAX package (a pinned
+#: deviation from the reference, which walks on indefinitely).
+MAX_ALPHA_RESTARTS = 4
+_ALPHA_SKIP_EPS = 1e-3
+
+
+@torch.no_grad()
+def _hit_alpha(scene: Scene, hit: TriangleHit) -> torch.Tensor:
+    """The sampled base-colour alpha at hits on alpha-blended materials;
+    1.0 at hits on opaque materials and at misses (a decision: no
+    gradient)."""
+    tri = torch.clamp(hit.tri, min=0).long()
+    geom = scene.geometry
+    uvs = geom.uvs[tri]  # [..., 3, 2]
+    mats = scene.materials
+    mtable = torch.cat([mats.base_color, mats.base_color_tex,
+                        mats.alpha_blend.to(torch.float32)[:, None]], dim=-1)
+    mrows = mtable[geom.material_id[tri].long()]
+    blend = mrows[..., 8] != 0.0
+    u = hit.u[..., None]
+    v = hit.v[..., None]
+    w = 1.0 - u - v
+    uv = w * uvs[..., 0, :] + u * uvs[..., 1, :] + v * uvs[..., 2, :]
+    base = sample_material_channel(scene, mrows[..., 0:4], mrows[..., 4:8], uv,
+                                   enabled=mats.tex_channels[0])
+    return torch.where(hit.is_some & blend, base[..., 3], 1.0)
+
+
+def _restart(o_cur, t_off, done, hit: TriangleHit, d):
+    """Moves the rays that are not done just past their hit (by the skip
+    epsilon on a miss) and adds the step to their distance so far. The
+    origin advances as one fused multiply-add a component, as XLA:CPU
+    compiles the JAX package's loop: the restarted rays then meet the same
+    triangles, edges included."""
+    step = torch.where(hit.is_some, hit.t, 0.0) + _ALPHA_SKIP_EPS
+    o_cur = torch.where(done[..., None], o_cur, fma(d, step[..., None], o_cur))
+    return o_cur, torch.where(done, t_off, t_off + step)
+
+
 def trace_closest(scene: Scene, o: torch.Tensor, d: torch.Tensor) -> TriangleHit:
-    """Closest opaque hit of rays o/d [..., 3]."""
-    check_scene_supported(scene)
-    return _trace_closest_kernel(scene, o, d)
+    """Closest opaque hit of rays o/d [..., 3]. On a scene with alpha
+    blending, a hit whose sampled alpha is below 1 is skipped: the ray
+    restarts just past it, MAX_ALPHA_RESTARTS times in all, without a look
+    at the host (every ray takes every step)."""
+    if not scene.has_alpha:
+        return _trace_closest_kernel(scene, o, d)
+    zero = o[..., 0] * 0.0
+    o_cur, t_off = o, zero
+    done = torch.zeros_like(zero, dtype=torch.bool)
+    bt, btri = zero + math.inf, torch.full_like(zero, -1, dtype=torch.int32)
+    bu, bv = zero, zero
+    for _ in range(MAX_ALPHA_RESTARTS):
+        hit = _trace_closest_kernel(scene, o_cur, d)
+        opaque = hit.is_some & (_hit_alpha(scene, hit) >= 1.0)
+        accept = ~done & opaque
+        bt = torch.where(accept, t_off + hit.t, bt)
+        btri = torch.where(accept, hit.tri, btri)
+        bu = torch.where(accept, hit.u, bu)
+        bv = torch.where(accept, hit.v, bv)
+        done = done | opaque | ~hit.is_some
+        o_cur, t_off = _restart(o_cur, t_off, done, hit, d)
+    return TriangleHit(t=bt, tri=btri, u=bu, v=bv)
+
+
+@torch.no_grad()
+def _trace_anyhit_alpha(scene: Scene, o, d, t_max) -> torch.Tensor:
+    """Occlusion by opaque hits only: the restart loop of ``trace_closest``,
+    each step a closest hit, counting a hit before t_max whose sampled
+    alpha is 1."""
+    zero = o[..., 0] * 0.0
+    o_cur, t_off = o, zero
+    done = torch.zeros_like(zero, dtype=torch.bool)
+    occluded = torch.zeros_like(done)
+    for _ in range(MAX_ALPHA_RESTARTS):
+        hit = _trace_closest_kernel(scene, o_cur, d)
+        in_range = hit.is_some & (t_off + hit.t < t_max)
+        opaque = in_range & (_hit_alpha(scene, hit) >= 1.0)
+        occluded = occluded | (~done & opaque)
+        done = done | opaque | ~in_range
+        o_cur, t_off = _restart(o_cur, t_off, done, hit, d)
+    return occluded
 
 
 def trace_anyhit(scene: Scene, o: torch.Tensor, d: torch.Tensor, t_max) -> torch.Tensor:
-    """Occlusion query: True where any triangle lies within t_max (kernel
-    B; for a big scene with a BVH kernel 6, 9 or 11 or the torch BVH
-    traversal, by the strategy; on detached rays: a boolean carries no
-    gradient)."""
-    check_scene_supported(scene)
+    """Occlusion query: True where any opaque triangle lies within t_max
+    (kernel B; for a big scene with a BVH kernel 6, 9 or 11 or the torch
+    BVH traversal, by the strategy; on a scene with alpha blending the
+    restart loop of ``trace_closest``; on detached rays: a boolean carries
+    no gradient)."""
     t_max = torch.broadcast_to(torch.as_tensor(t_max, device=o.device), o.shape[:-1])
     t_max = t_max.detach().to(torch.float32).contiguous()
     o = o.detach().contiguous()
     d = d.detach().contiguous()
+    if scene.has_alpha:
+        return _trace_anyhit_alpha(scene, o, d, t_max)
     if not is_big(scene):
         return tk.trace_anyhit_brute(packed_tri_rows(scene).detach(), o, d, t_max)
     if _stream_route(scene):
@@ -220,9 +297,10 @@ def trace_surface(
     surface_at, whose t/u/v are recomputed through the winner with tensor
     ops so that gradients flow (the differentiable path), as does a
     scene over BRUTE_FORCE_MAX_TRIS triangles without a BVH (kernel A).
-    ``regularize`` clamps roughness for indirect bounces."""
-    check_scene_supported(scene)
-    if use_pallas is False or (
+    A scene with alpha blending takes trace_closest + surface_at too: the
+    fused kernels have no alpha test. ``regularize`` clamps roughness for
+    indirect bounces."""
+    if use_pallas is False or scene.has_alpha or (
         scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS and scene.bvh is None
     ):
         hit = trace_closest(scene, o, d)

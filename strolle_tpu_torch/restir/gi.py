@@ -319,6 +319,9 @@ def gi_sampling(scene: Scene, camera: Camera, surf: Surface, rep: GiReservoirs, 
     light_id = torch.where(miss, -1, light_id)
     light_pdf = torch.where(miss, 1.0, light_pdf)
     light_rad = torch.where(miss[..., None], _sky(luts, sun, gi_dir), light_rad)
+    # the NEE/RIS pdf is a sampling statistic: detached, as the resampling
+    # weights are (reservoir.resampling_weight)
+    light_pdf = light_pdf.detach()
 
     # shadow ray at the secondary vertex
     lg = gather_light(scene.lights, torch.clamp(light_id, min=0))

@@ -15,8 +15,15 @@ LIGHT_SKY = -1
 
 def resampling_weight(w, pdf, norm_num, norm_denom):
     """The unbiased contribution weight W = w * num / (pdf * denom), 0
-    where the denominator is. The JAX package defines its derivative as
-    zero; the port's differentiable path (a later slice) detaches it."""
+    where the denominator is. Its derivative is zero, as the JAX package
+    defines it (a custom JVP with a zero tangent): the resampling
+    statistics are fixed decisions and gradients follow the selected
+    sample's radiance. The value is computed from detached inputs, so it
+    is a constant to autograd and no division by a pdf near 0 reaches the
+    backward pass."""
+    w, pdf, norm_num, norm_denom = (
+        x.detach() if isinstance(x, torch.Tensor) else x for x in (w, pdf, norm_num, norm_denom)
+    )
     denom = pdf * norm_denom
     zero = denom == 0.0
     return torch.where(zero, 0.0, w * norm_num / torch.where(zero, 1.0, denom))

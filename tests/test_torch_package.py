@@ -1,6 +1,6 @@
 """The port's package boundaries: no JAX inside it, the card by default,
-a loud refusal of the paths that later slices port (the alpha restart
-loop, the mesh sharding context), and big scenes without a BVH traced
+a loud refusal of the paths that later slices port (the mesh sharding
+context, the sharded training step), and big scenes without a BVH traced
 through kernels A and B as the JAX package traces them."""
 
 import ast
@@ -18,6 +18,7 @@ from strolle_tpu.ops import trace as jax_trace
 from strolle_tpu.scene.cornell import cornell_box as jax_cornell_box
 from strolle_tpu_torch import convert
 from strolle_tpu_torch.camera import make_camera, pixel_rays, screen_grid
+from strolle_tpu_torch.models import train
 from strolle_tpu_torch.models.reference import trace_sample
 from strolle_tpu_torch.models.restir import init_state
 from strolle_tpu_torch.ops.kernels import ref_kernel, trace_kernels
@@ -73,30 +74,19 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
 
 def test_unported_paths_raise():
     from strolle_tpu_torch.ops import trace as trace_mod
-    from strolle_tpu_torch.scene.types import Geometry
 
     scene = cornell_box(device="cpu")
     cam = cornell_camera(4, 4, device="cpu")
     with pytest.raises(ValueError, match="megakernel"):
         trace_sample(scene, cam, 1, depth=1, include_sky=True, use_megakernel=True)
-    # the alpha restart loop
-    alpha = scene.replace(has_alpha=True)
-    for mk in (None, False):
-        with pytest.raises(NotImplementedError, match="alpha"):
-            trace_sample(alpha, cam, 1, depth=1, include_sky=False, use_megakernel=mk)
     o = torch.zeros(4, 3)
-    for strategy in ("stream", "cluster", "packet", "jnp"):
-        trace_mod.BIG_SCENE_STRATEGY = strategy
-        try:
-            for use_pallas in (None, True, False):
-                with pytest.raises(NotImplementedError):
-                    trace_surface(alpha, o, o, use_pallas=use_pallas)
-                with pytest.raises(NotImplementedError):
-                    trace_mod.trace_anyhit(alpha, o, o, 1.0)
-        finally:
-            trace_mod.BIG_SCENE_STRATEGY = "stream"
     with pytest.raises(NotImplementedError, match="multi-device"):
         trace_mod.trace_rows_sharded(None)
+    params = train.params_from_scene(scene)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        train.train_step_sharded(None, params, scene, cam, torch.zeros(4, 4, 3), 1)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        train.render_loss(params, scene, cam, torch.zeros(4, 4, 3), 1, mesh=object())
     with pytest.raises(NotImplementedError, match="1024"):
         ref_kernel.trace_sample_megakernel(
             torch.zeros(1032, 24), torch.zeros(1, 12), torch.zeros(1, 13), 1,

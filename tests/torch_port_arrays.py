@@ -155,3 +155,37 @@ def _tie_scene(c, row0_x, yz):
     d = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
     return (clusterize_bvh(None, pos.shape[0], positions), rows,
             torch.tensor(o.astype(np.float32)), torch.tensor(d.astype(np.float32)))
+
+
+#: The alpha-blended pane that ``alpha_cornell_scenes`` adds: across the
+#: front of the box, between the camera and both boxes.
+ALPHA_PANE = ([-0.7, 0.1, 0.7], [0.7, 0.1, 0.7], [0.7, 1.7, 0.7], [-0.7, 1.7, 0.7])
+
+
+def alpha_cornell_scenes(alpha: float = 0.4):
+    """Cornell with one pane on an alpha-blended material of base alpha
+    ``alpha`` (below 1: every ray passes through it) in both packages:
+    (JAX scene, port scene), built by the JAX package and carried over."""
+    import jax.numpy as jnp
+    from strolle_tpu.scene.build import MeshBuilder
+    from strolle_tpu.scene.cornell import cornell_box
+    from strolle_tpu.scene.types import make_materials
+    from strolle_tpu_torch import convert
+
+    js = cornell_box()
+    b = MeshBuilder()
+    b.add_quad(*ALPHA_PANE, js.materials.num_materials)
+    pane = b.build()
+    g = js.geometry
+    geom = g.replace(**{
+        f: jnp.concatenate([jnp.asarray(getattr(g, f)), jnp.asarray(getattr(pane, f))])
+        for f in ("positions", "normals", "uvs", "tangents", "material_id")
+    })
+    m = make_materials([{"base_color": [0.9, 0.5, 0.2, alpha], "alpha_blend": 1}])
+    mats = js.materials.replace(**{
+        f.name: jnp.concatenate([jnp.asarray(getattr(js.materials, f.name)),
+                                 jnp.asarray(getattr(m, f.name))])
+        for f in dataclasses.fields(m) if f.name != "tex_channels"
+    })
+    jscene = js.replace(geometry=geom, materials=mats, has_alpha=True)
+    return jscene, convert.scene_from_arrays(scene_arrays(jscene), device="cpu")
