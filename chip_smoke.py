@@ -107,6 +107,27 @@ Run from the root of the repository:  python3 chip_smoke.py
    route with the gate raised (at least 99% agreement); one staged
    reference sample and one realtime frame of the alpha Cornell (kernel A
    only, the megakernel refused).
+   Then (phase 5i) the engine: the dungeon as a SceneEditor scene (its
+   triangles as one soup instance per material, its material records,
+   atlas and lights, the sun at 0.35) with 16 boxes of
+   examples/stress_bvh.py's falling-box motion (a mesh and its instances)
+   through a Renderer in "image" mode with the sky: 18 frames with no
+   edit, whose mean over frames 6-17 is within 15% of a 64-sample depth-1
+   reference of the same scene, then 20 frames with the boxes moving (a
+   light removed at the 4th, the sun moved at the 8th), counted (kernels
+   5 and 6 as the realtime frame's schedule says, no other kernel); every
+   channel finite, refits and the rebuild after 15 refits in a row, the
+   kill/remap markers on exactly one frame, the velocity on the moving
+   boxes' pixels against a float64 host projection of their displacement
+   (median error < 0.1 px); a checkpoint of the state after frame 10
+   restored, its next frame bit-equal to the live one's; kernels 5 and 6
+   against their plain versions on the refitted scene. Then
+   stress_bvh's floor and 48 boxes (578 triangles, padded to 1024) in a
+   Viewer with its HTTP server up: the same edits through kernels 4 and
+   B, one frame in each of the viewer's 9 modes (reference twice,
+   through kernel C), counted, one GET of the frame, and kernels A, B and
+   4 against their plain versions on that scene; ms per tick (rebuild,
+   refit) and per engine frame, and one engine frame under the profiler.
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler; kernels A and B also
@@ -131,6 +152,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -139,6 +161,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -2498,6 +2521,497 @@ def drive_alpha(scene, cam, staged, device) -> dict:
     return out
 
 
+#: Phase 5i, the engine: the dungeon as a SceneEditor scene (its
+#: triangles as one soup instance per material, its lights, the sun at
+#: DG_SUN) with ENGINE_BOXES unit boxes of ENGINE_BOX_SIZE (a mesh and its
+#: instances) that examples/stress_bvh.py's integrator moves (gravity,
+#: a bounce off the floor at ENGINE_FLOOR_Y): ENGINE_STATIC_FRAMES frames
+#: with no edit, then ENGINE_MOVING_FRAMES with the boxes moving every
+#: frame, a light removed at the 4th and the sun moved to
+#: ENGINE_SUN_MOVED at the 8th. Twenty moving frames, so that the
+#: editor's 15 refits in a row end in a rebuild inside the run.
+ENGINE_BOXES, ENGINE_BOX_SIZE, ENGINE_FLOOR_Y = 16, 0.3, -0.83
+ENGINE_STATIC_FRAMES, ENGINE_MOVING_FRAMES = 18, 20
+ENGINE_LIGHT_REMOVED_AT, ENGINE_SUN_MOVED_AT, ENGINE_SUN_MOVED = 3, 7, 0.45
+#: The checkpoint is saved after this frame of the static run.
+ENGINE_CHECKPOINT_FRAME = 10
+#: The sun light's colour at altitudes DG_SUN and ENGINE_SUN_MOVED
+#: (azimuth 0) as the JAX package's SceneEditor makes it
+#: (strolle_tpu/scene/dynamics.py _make_sun, its LUTs on the CPU); the
+#: port's, from LUTs made on the card, is held within SUN_COLOR_RTOL.
+#: (The same colour from the direct transmittance march differs by
+#: 9-15%: the check tells the LUT path from another.)
+JAX_SUN_COLOR = {0.35: (85.17781066894531, 69.03987121582031, 50.20526123046875),
+                 0.45: (88.12002563476562, 74.65097045898438, 58.123870849609375)}
+SUN_COLOR_RTOL = 1e-3
+#: The small editor scene: examples/stress_bvh.py's floor and 48 boxes
+#: (578 triangles, bucket 1024: kernels 4, B and C), its camera at
+#: ENGINE_SMALL_SIZE.
+ENGINE_SMALL_BOXES, ENGINE_SMALL_SIZE = 48, (384, 288)
+
+
+def box_triangles(size: float = 1.0) -> np.ndarray:
+    """examples/minecraft.py's axis-aligned cube at the origin, [12, 3, 3]
+    with outward counter-clockwise winding."""
+    h = size / 2.0
+    v = np.asarray([[-h, -h, -h], [h, -h, -h], [h, h, -h], [-h, h, -h],
+                    [-h, -h, h], [h, -h, h], [h, h, h], [-h, h, h]], np.float32)
+    quads = [(4, 5, 6, 7), (1, 0, 3, 2), (5, 1, 2, 6), (0, 4, 7, 3), (7, 6, 2, 3), (0, 1, 5, 4)]
+    return np.asarray([[v[a], v[b], v[c]] for a, b, c, d in quads for a, b, c in
+                       ((a, b, c), (a, c, d))], np.float32)
+
+
+class Boxes:
+    """examples/stress_bvh.py's falling boxes: seeded positions in
+    [lo, hi), sideways speeds in [-1, 1), gravity and a damped bounce off
+    the floor, one 1/30 s step a frame."""
+
+    def __init__(self, n: int, lo, hi, floor_y: float, size: float, seed: int = 3):
+        rng = np.random.default_rng(seed)
+        self.pos = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+        self.vel = np.zeros((n, 3), np.float32)
+        self.vel[:, 0] = rng.uniform(-1, 1, n)
+        self.vel[:, 2] = rng.uniform(-1, 1, n)
+        self.floor, self.size = floor_y + size / 2.0, size
+
+    def step(self, dt: float = 1.0 / 30.0) -> None:
+        self.vel[:, 1] -= 9.8 * dt
+        self.pos += self.vel * dt
+        grounded = self.pos[:, 1] < self.floor
+        self.pos[grounded, 1] = self.floor
+        self.vel[grounded, 1] = np.abs(self.vel[grounded, 1]) * 0.55
+
+    def insert(self, ed, materials) -> None:
+        for i, p in enumerate(self.pos):
+            xf = np.diag([self.size, self.size, self.size, 1.0]).astype(np.float32)
+            xf[:3, 3] = p
+            ed.insert_instance(("box", i), mesh="unit_box",
+                               material=materials[i % len(materials)], transform=xf)
+
+
+def dungeon_editor(dg, device):
+    """The dungeon as a SceneEditor: its material records and atlas, its
+    triangles as one soup instance per material, its lights, the sun at
+    DG_SUN, the unit box mesh and three box materials."""
+    from strolle_tpu_torch.scene.dynamics import SceneEditor
+
+    m = dg.materials
+    host = {f.name: getattr(m, f.name).cpu().numpy() for f in dataclasses.fields(m)
+            if isinstance(getattr(m, f.name), torch.Tensor)}
+    records = [{k: (v[i].tolist() if v[i].ndim else v[i].item()) for k, v in host.items()}
+               for i in range(m.num_materials)]
+    ed = SceneEditor(materials=records, light_capacity=dg.lights.capacity,
+                     sun_azimuth=dg.sun_azimuth, sun_altitude=DG_SUN,
+                     atlas=dg.atlas.image.cpu().numpy(), atlas_size=dg.atlas.image.shape[0],
+                     device=device)
+    g = dg.geometry
+    pos, nrm, uv = (x.cpu().numpy() for x in (g.positions, g.normals, g.uvs))
+    mid = g.material_id.cpu().numpy()
+    for k in np.unique(mid):
+        sel = mid == k
+        ed.insert_instance(("material", int(k)), pos[sel], material_id=int(k), normals=nrm[sel],
+                           uvs=uv[sel])
+    lights = {f.name: getattr(dg.lights, f.name).cpu().numpy()
+              for f in dataclasses.fields(dg.lights) if not f.name.startswith("prev_")
+              and f.name not in ("remap", "killed", "count")}
+    for i in range(dg.lights.count):
+        ed.insert_light(("light", i), **{k: v[i] for k, v in lights.items()})
+    ed.insert_mesh("unit_box", box_triangles())
+    mats = [ed.insert_material(("box", k), base_color=c, roughness=0.6)
+            for k, c in enumerate(([0.8, 0.3, 0.2, 1.0], [0.2, 0.5, 0.8, 1.0],
+                                   [0.9, 0.8, 0.2, 1.0]))]
+    return ed, mats
+
+
+@contextlib.contextmanager
+def frame_capture():
+    """Records the channels of every realtime frame and the velocity of
+    its primary pass (what restir.render_frame computes, no extra work)."""
+    from strolle_tpu_torch.models import restir
+
+    seen = {"channels": [], "primary": []}
+    render, primary = restir.render_frame, restir.primary_pass
+
+    def render_rec(*a, **kw):
+        ch, st = render(*a, **kw)
+        seen["channels"].append(ch)
+        return ch, st
+
+    def primary_rec(*a, **kw):
+        out = primary(*a, **kw)
+        seen["primary"].append(out)
+        return out
+
+    restir.render_frame, restir.primary_pass = render_rec, primary_rec
+    try:
+        yield seen
+    finally:
+        restir.render_frame, restir.primary_pass = render, primary
+
+
+def host_screen(cam, p: np.ndarray) -> np.ndarray:
+    """World points [N, 3] -> screen xy [N, 2] in float64 on the host
+    (camera.world_to_screen_xy's arithmetic)."""
+    m = cam.projection_view.cpu().numpy().astype(np.float64)
+    c = p.astype(np.float64) @ m[:, :3].T + m[:, 3]
+    return np.stack([(0.5 * c[:, 0] / c[:, 3] + 0.5) * cam.width,
+                     (0.5 * -(c[:, 1] / c[:, 3]) + 0.5) * cam.height], -1)
+
+
+def box_velocity_error(ed, scene, cam, surf, velocity, disp: np.ndarray) -> np.ndarray:
+    """|velocity - host projection of the displacement| on the pixels that
+    hit a moving box: the hit point moved back by its box's displacement
+    ``disp`` [boxes, 3], both projected with ``cam`` (the camera stands
+    still)."""
+    slot_box = np.full(len(ed._motion_handles) + 1, -1)
+    for slot, (_, handle) in enumerate(ed._motion_handles):
+        if isinstance(handle, tuple) and handle[0] == "box":
+            slot_box[slot] = handle[1]
+    tri = surf.tri.cpu().numpy()
+    inst = scene.motion.instance_id.cpu().numpy()[np.maximum(tri, 0)]
+    box = np.where(surf.is_some.cpu().numpy(), slot_box[inst], -1)
+    sel = box >= 0
+    p = surf.point.cpu().numpy()[sel]
+    want = host_screen(cam, p) - host_screen(cam, p - disp[box[sel]])
+    moving = (want ** 2).sum(-1) >= 0.01  # the frame zeroes |v|^2 < 0.001
+    got = np.stack([velocity[0].cpu().numpy()[sel], velocity[1].cpu().numpy()[sel]], -1)
+    return np.abs(got - want).max(-1)[moving]
+
+
+def markers(scene) -> int:
+    lights = scene.lights
+    return int(lights.killed.sum()) + int((lights.remap >= 0).sum())
+
+
+def checkpoint_frame(scene, cam, state, seed: int, config, luts, path) -> bool:
+    """Saves ``state``, restores it into a fresh state of the same shape,
+    and renders the next frame from both: True when every channel and
+    every leaf of the new state is bit-equal. Its launches are not the
+    main path's: the counts are put back as they were."""
+    from strolle_tpu_torch.models.restir import init_state, render_frame
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.utils import checkpoint
+    from strolle_tpu_torch.utils.pytree import tree_map
+
+    counts = dict(cuda_lib.LAUNCHES)
+    checkpoint.save(path, {"state": state})
+    restored = checkpoint.restore(path, {"state": init_state(cam, device=cam.device)})["state"]
+    a, sa = render_frame(scene, cam, state, seed, config, luts)
+    b, sb = render_frame(scene, cam, restored, seed, config, luts)
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    leaves = []
+    tree_map(leaves.append, (sa, sb))
+    half = len(leaves) // 2
+    same &= all(torch.equal(x, y) for x, y in zip(leaves[:half], leaves[half:]))
+    same &= sa.frame == sb.frame
+    cuda_lib.LAUNCHES.clear()
+    cuda_lib.LAUNCHES.update(counts)
+    return same
+
+
+def timed_tick(ed) -> tuple[object, float, str]:
+    """One editor tick with its wall time (the device copies waited for),
+    and which BVH path it took."""
+    before = dict(ed.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = ed.tick()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    kind = ("rebuild" if ed.stats["bvh_rebuilds"] > before["bvh_rebuilds"] else
+            "refit" if ed.stats["bvh_refits"] > before["bvh_refits"] else "none")
+    return scene, ms, kind
+
+
+def drive_engine_dungeon(dg, cam, device) -> dict:
+    """Phase 5i (a): the dungeon editor's frames through the Renderer,
+    counted, with the checks of its channels, ticks, markers and box
+    velocities, the checkpoint on the card, and the static frames' mean
+    against a REF_SAMPLES-sample depth-1 reference of the same scene."""
+    from strolle_tpu_torch import CameraSettings, Renderer
+    from strolle_tpu_torch.models.restir import RenderConfig
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.sky.atmosphere import luts_for
+
+    t0 = time.perf_counter()
+    ed, box_mats = dungeon_editor(dg, device)
+    boxes = Boxes(ENGINE_BOXES, [-2.5, 0.0, 0.5], [1.5, 1.5, 3.5], ENGINE_FLOOR_Y,
+                  ENGINE_BOX_SIZE)
+    boxes.insert(ed, box_mats)
+    setup_s = time.perf_counter() - t0
+    r = Renderer()
+    r.create_camera("view", cam, CameraSettings(mode="image", include_sky=True))
+    config = RenderConfig(mode="image", include_sky=True)
+    luts_for(ENGINE_SUN_MOVED, device)  # made before the counted run, like the kernels
+    ticks = {"rebuild": [], "refit": [], "none": []}
+    acc, n_acc, per_frame, frame_ms, vel_err, ckpt_same = None, 0, [], [], [], None
+    static_scene, sun_colors = None, []
+    frames = ENGINE_STATIC_FRAMES + ENGINE_MOVING_FRAMES
+    cuda_lib.reset_launch_counts()
+    with frame_capture() as seen:
+        for f in range(frames):
+            moving = f - ENGINE_STATIC_FRAMES
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            before = boxes.pos.copy()
+            if moving >= 0:
+                boxes.step()
+                boxes.insert(ed, box_mats)
+                if moving == ENGINE_LIGHT_REMOVED_AT:
+                    ed.remove_light(("light", 2))
+                if moving == ENGINE_SUN_MOVED_AT:
+                    ed.update_sun(altitude=ENGINE_SUN_MOVED)
+            scene, tick_ms, kind = timed_tick(ed)
+            ticks[kind].append(tick_ms)
+            luts = luts_for(scene.sun_altitude, device)
+            img = r.render_camera("view", scene, 20000 + f, luts)
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            per_frame.append((markers(scene), scene.lights.count))
+            if f == 0 or moving == ENGINE_SUN_MOVED_AT:
+                sun_colors.append((scene.sun_altitude, scene.lights.color[0].tolist(),
+                                   scene.lights.prev_color[0].tolist()))
+            for k, v in seen["channels"][-1].items():
+                check(bool(torch.isfinite(v).all()), f"engine frame {f}: {k} not finite")
+            check(tuple(img.shape) == (cam.height, cam.width, 3), "engine image shape")
+            if 6 <= f < ENGINE_STATIC_FRAMES:
+                acc = img if acc is None else acc + img
+                n_acc += 1
+                static_scene = scene
+            if moving >= 1:  # frame 0 of the run moved nothing
+                surf, velocity = seen["primary"][-1]
+                vel_err.append(box_velocity_error(ed, scene, cam, surf, velocity,
+                                                  boxes.pos - before))
+            if f == ENGINE_CHECKPOINT_FRAME:
+                with tempfile.TemporaryDirectory() as path:
+                    ckpt_same = checkpoint_frame(scene, cam, r._cameras["view"].state,
+                                                 20000 + f + 1, config, luts, path)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"engine: dungeon editor, {frames} frames through the Renderer: launches {launches}, "
+          f"stats {ed.stats}, ticks (ms) {ticks}", flush=True)
+    check_launches(launches, realtime_launches(frames, big=STRATEGY_KERNELS["stream"]),
+                   "the engine's dungeon frames")
+    check(ckpt_same is True, "a frame from the restored checkpoint differs from the live one")
+    check(ed.stats["bvh_refits"] >= 15 and ed.stats["bvh_rebuilds"] >= 2,
+          f"no refits or no rebuild after the refit streak: {ed.stats}")
+    removal = ENGINE_STATIC_FRAMES + ENGINE_LIGHT_REMOVED_AT
+    with_markers = [f for f, (n, _) in enumerate(per_frame) if n > 0]
+    check(with_markers == [removal], f"kill/remap markers on frames {with_markers}, "
+          f"not on frame {removal} alone")
+    check(per_frame[removal][1] == dg.lights.count, "the light count after the removal")
+    print(f"engine: the sun's colour (altitude, colour, previous colour): {sun_colors}; the "
+          f"JAX package's: {JAX_SUN_COLOR}", flush=True)
+    (a0, c0, _), (a1, c1, p1) = sun_colors
+    for got, want in ((c0, JAX_SUN_COLOR[a0]), (c1, JAX_SUN_COLOR[a1]), (p1, JAX_SUN_COLOR[a0])):
+        rel = max(abs(g - w) / w for g, w in zip(got, want))
+        check(rel < SUN_COLOR_RTOL, f"the sun's colour {got} is {rel:.2e} off the JAX {want}")
+    errs = np.concatenate(vel_err)
+    med = float(np.median(errs))
+    print(f"engine: box velocity against the host projection of the displacement: median "
+          f"{med:.5f} px, 99th percentile {float(np.percentile(errs, 99)):.4f} px over "
+          f"{errs.size} moving box pixels", flush=True)
+    check(errs.size > 1000, f"only {errs.size} moving box pixels")
+    check(med < 0.1, f"box velocity off its host projection by {med:.4f} px (median)")
+    ref1 = reference_depth1(static_scene, cam, include_sky=True, luts=luts_for(DG_SUN, device))
+    mean = acc / n_acc
+    rel = abs(mean.mean().item() - ref1.mean().item()) / ref1.mean().item()
+    print(f"engine: mean image of static frames 6-{ENGINE_STATIC_FRAMES - 1} "
+          f"{mean.mean().item():.5f} vs {REF_SAMPLES}-sample sky reference depth 1 "
+          f"{ref1.mean().item():.5f}: relative difference {rel:.4f}", flush=True)
+    check(rel < DG_RT_TOLERANCE, f"engine realtime mean off the reference by {rel:.3f}")
+    moving_ms = frame_ms[ENGINE_STATIC_FRAMES:]
+    return {"editor": ed, "boxes": boxes, "box_mats": box_mats, "scene": scene,
+            "renderer": r, "launches": launches,
+            "info": {"setup_s": setup_s, "stats": dict(ed.stats),
+                     "triangles": scene.geometry.num_triangles,
+                     "clusters": int(scene.clusters.shape[0]),
+                     # the first build (the atlas and materials uploaded
+                     # too), then the streak's rebuild
+                     "tick_ms_rebuilds": ticks["rebuild"],
+                     "tick_ms_refit_median": statistics.median(ticks["refit"]),
+                     "tick_ms_unchanged_median": statistics.median(ticks["none"]),
+                     "tick_counts": {k: len(v) for k, v in ticks.items()},
+                     "frame_ms_static": statistics.median(frame_ms[:ENGINE_STATIC_FRAMES]),
+                     "frame_ms_moving": statistics.median(moving_ms),
+                     "velocity_err_median_px": med, "velocity_pixels": int(errs.size),
+                     "mean_vs_reference": rel}}
+
+
+def hold_engine_stream(scene, cam, device, err: dict) -> None:
+    """Phase 5i (c): kernels 5 and 6 through their wrappers against their
+    plain versions on the refitted editor scene (padded rows, empty-leaf
+    nodes, boxes loosened by refits, clusters rebuilt): the primaries and
+    the bounce-0 shadow rays toward the lights."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
+    for what, anyhit, (o, d, t_max) in (("primary", False, (po, pd, None)),
+                                        ("lights", True, (so, sd, slen))):
+        x = stream_inputs(scene, o, d, t_max)
+        if anyhit:
+            got = (sk.stream_trace_anyhit(x["clus"], x["rows"], o, d, t_max),)
+        else:
+            g = sk.stream_trace_surface(x["clus"], x["rows"], o, d)
+            got = (g["t"], torch.where(g["hit"], g["tri"], -1), g["u"], g["v"])
+        want = stream_plain(x, anyhit)
+        torch.cuda.synchronize()
+        k = "6" if anyhit else "5"
+        n = o.numel() // 3
+        name = f"kernel {k} (engine dungeon, refitted, {what}, {n} rays)"
+        mism, e = stream_mismatch(got, want, anyhit, name)
+        rate = got[0].float().mean().item() if anyhit else (got[1] >= 0).float().mean().item()
+        print(f"{name} vs plain: mismatches {mism}, max err {e:.3g}, "
+              f"{'occluded' if anyhit else 'hit'} rate {rate:.3f}", flush=True)
+        check(mism <= 1e-5 * n, f"{name}: {mism} rays differ from the plain version")
+        check(0.0 < rate, f"{name}: degenerate")
+        err[k] = max(err[k], e)
+
+
+def small_editor(device):
+    """examples/stress_bvh.py's scene: its materials, the sun at 0.6, its
+    key light and a fill light (removed later), the floor and the unit
+    box mesh, ENGINE_SMALL_BOXES boxes falling from 6-16 units."""
+    from strolle_tpu_torch.camera import make_camera
+    from strolle_tpu_torch.scene.dynamics import SceneEditor
+
+    materials = [
+        {"base_color": [0.75, 0.75, 0.75, 1.0], "roughness": 1.0},
+        {"base_color": [0.8, 0.3, 0.2, 1.0], "roughness": 0.6},
+        {"base_color": [0.2, 0.5, 0.8, 1.0], "roughness": 0.6},
+        {"base_color": [0.9, 0.8, 0.2, 1.0], "roughness": 0.6},
+    ]
+    ed = SceneEditor(materials=materials, sun_altitude=0.6, sun_azimuth=0.3, device=device)
+    ed.insert_light("key", pos=[6.0, 10.0, 6.0], radius=0.3, color=[60.0, 58.0, 52.0])
+    ed.insert_light("fill", pos=[-6.0, 8.0, 4.0], radius=0.3, color=[20.0, 20.0, 24.0])
+    floor = np.asarray([[[-12, 0, -12], [12, 0, -12], [12, 0, 12]],
+                        [[-12, 0, -12], [12, 0, 12], [-12, 0, 12]]], np.float32)
+    ed.insert_instance("floor", floor, material_id=0)
+    ed.insert_mesh("unit_box", box_triangles())
+    boxes = Boxes(ENGINE_SMALL_BOXES, [-6, 6, -6], [6, 16, 6], 0.0, 1.0)
+    boxes.insert(ed, [1, 2, 3])
+    w, h = ENGINE_SMALL_SIZE
+    cam = make_camera(eye=[0.0, 7.0, 18.0], target=[0.0, 3.0, 0.0], fov_y=np.deg2rad(55.0),
+                      width=w, height=h, device=device)
+    return ed, boxes, cam
+
+
+def drive_engine_small(device, err: dict) -> dict:
+    """Phase 5i (b), (c) for kernels 4 and B, and (e): the small editor
+    scene in a Viewer with its HTTP server up: the edit pattern (boxes
+    every frame, the fill light removed at the 4th, the sun moved at the
+    8th) in "image" mode, then one frame in each of the viewer's modes
+    ("reference" twice: kernel C accumulates), counted; one GET of the
+    frame; kernels A, B and 4 against their plain versions on the last
+    scene."""
+    import urllib.request
+
+    from PIL import Image
+
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.ops.trace import packed_tri_rows
+    from strolle_tpu_torch.viewer import MODES, Viewer
+
+    ed, boxes, cam = small_editor(device)
+    v = Viewer(ed, cam, include_sky=False)  # kernel C takes no sky
+    port = v.start_server("127.0.0.1", 0)
+    frame_ms = []
+    try:
+        cuda_lib.reset_launch_counts()
+        with frame_capture() as seen:
+            for f in range(ENGINE_STATIC_FRAMES // 2):
+                boxes.step()
+                boxes.insert(ed, [1, 2, 3])
+                if f == ENGINE_LIGHT_REMOVED_AT:
+                    ed.remove_light("fill")
+                if f == ENGINE_SUN_MOVED_AT:
+                    ed.update_sun(altitude=0.5)
+                v.render_one(seed=30000 + f)
+                frame_ms.append(v.state()["frame_ms"])
+            for m in MODES:
+                v.push_control({"mode": m})
+                for _ in range(2 if m == "reference" else 1):
+                    u8 = v.render_one()
+                    check(u8.shape == (cam.height, cam.width, 3) and u8.dtype == np.uint8,
+                          f"viewer mode {m}: frame {u8.shape} {u8.dtype}")
+                if m == "reference":
+                    acc = v.renderer._cameras["view"].state
+                    check(bool((acc.samples == 2).all()), "reference mode did not accumulate")
+            for i, ch in enumerate(seen["channels"]):
+                for k, x in ch.items():
+                    check(bool(torch.isfinite(x).all()), f"viewer frame {i}: {k} not finite")
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/frame.jpg", timeout=30) as resp:
+            jpg = resp.read()
+            ctype = resp.headers.get("Content-Type")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/state", timeout=30) as resp:
+            state = json.loads(resp.read())
+    finally:
+        v.stop_server()
+    size = Image.open(io.BytesIO(jpg)).size
+    print(f"engine: small editor scene in the viewer ({len(frame_ms)} edit frames, "
+          f"{len(MODES)} modes): launches {launches}, stats {ed.stats}; GET /frame.jpg: "
+          f"{ctype}, {len(jpg)} bytes, {size}; /state {state}", flush=True)
+    check(ctype == "image/jpeg" and size == (cam.width, cam.height), "GET /frame.jpg")
+    check(state["frame"] == len(frame_ms) + len(MODES) + 1, "viewer frame counter")
+    for k in ("trace_surface", "trace_anyhit_brute"):
+        check(launches.get(k, 0) > 0, f"the small editor scene never launched {k}")
+    check(launches.get("trace_sample_megakernel", 0) == 2, "kernel C launches in reference mode")
+    for k in ALL_KERNELS:
+        if k not in ("trace_surface", "trace_anyhit_brute", "trace_sample_megakernel"):
+            check(launches.get(k, 0) == 0, f"the small editor scene launched {k}")
+    check(ed.stats["bvh_refits"] > 0, "the small scene's boxes never took the refit path")
+
+    scene = ed.tick()
+    check(scene.geometry.num_triangles == 1024 and scene.bvh.max_depth >= 48,
+          "the small editor scene's bucket")
+    err["4"] = max(err["4"], compare_surface_kernel({"engine_small": scene}, cam, device))
+    po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
+    ea, eb = hold_brute(packed_tri_rows(scene), so, sd, slen, "engine small scene, shadow rays")
+    err["A"], err["B"] = max(err["A"], ea), max(err["B"], eb)
+    return {"launches": launches,
+            "info": {"stats": dict(ed.stats), "frame_ms_edits": statistics.median(frame_ms),
+                     "triangles": scene.geometry.num_triangles, "jpeg_bytes": len(jpg)}}
+
+
+def drive_engine(dg, dcam, device, err: dict) -> dict:
+    """Phase 5i: the engine. Returns its launches (for the kernels line)
+    and its numbers."""
+    from strolle_tpu_torch.sky.atmosphere import luts_for
+
+    dungeon_run = drive_engine_dungeon(dg, dcam, device)
+    hold_engine_stream(dungeon_run["scene"], dcam, device, err)
+    small = drive_engine_small(device, err)
+    # (f) one engine frame (the boxes' step, the tick, the frame) under
+    # the profiler, and a rebuild timed on its own
+    ed, boxes, mats = dungeon_run["editor"], dungeon_run["boxes"], dungeon_run["box_mats"]
+    r = dungeon_run["renderer"]
+    holder = {"seed": 40000}
+
+    def engine_frame():
+        boxes.step()
+        boxes.insert(ed, mats)
+        scene = ed.tick()
+        r.render_camera("view", scene, holder["seed"], luts_for(scene.sun_altitude, device))
+        holder["seed"] += 1
+
+    profile = profile_frames(engine_frame, frames=2)
+    ed.remove_instance(("box", 0))  # a new instance: a full rebuild
+    boxes.insert(ed, mats)
+    _, rebuild_ms, kind = timed_tick(ed)
+    check(kind == "rebuild", "the forced rebuild")
+    launches = collections.Counter(dungeon_run["launches"])
+    launches.update(small["launches"])
+    info = {"dungeon": dungeon_run["info"], "small": small["info"],
+            "profile_engine_frame": profile, "forced_rebuild_ms": rebuild_ms}
+    print(f"engine: {json.dumps(info)}", flush=True)
+    return {"launches": launches, "info": info}
+
+
 T_START = time.perf_counter()
 
 
@@ -2779,6 +3293,10 @@ def main() -> int:
     phase("5h")
     alpha_info = drive_alpha(scene, cam, staged, device)
 
+    # --- 5i. the engine: SceneEditor, Renderer, viewer, checkpoint ---------
+    phase("5i")
+    engine = drive_engine(dg, dcam, device, err)
+
     # --- 6. timings -----------------------------------------------------
     phase("6")
     # the torch BVH traversal on the card: trace_closest's route under
@@ -3017,21 +3535,24 @@ def main() -> int:
         "train": train_info,
         "restir_train": restir_train_info,
         "alpha": alpha_info,
+        "engine": engine["info"],
         "total_s": time.perf_counter() - T_START,
     }
     print("timings: " + json.dumps(timings), flush=True)
 
-    # the launches of the differentiable and alpha phases (5f-5h)
+    # the launches of the differentiable, alpha and engine phases (5f-5i)
     new_path_launches = collections.Counter()
     alpha_counts = [v for k, v in alpha_info.items() if not k.endswith("_ms")]
-    for counts in (train_info["launches"], restir_train_info["launches"], *alpha_counts):
+    for counts in (train_info["launches"], restir_train_info["launches"], *alpha_counts,
+                   engine["launches"]):
         new_path_launches.update(counts)
     kernels = [
         {
             "name": "trace_sample_megakernel", "route": "cuda",
             "source": "strolle_tpu_torch/csrc/ref_megakernel.cu",
             "replaces": "strolle_tpu/ops/pallas/ref_kernel.py:617",
-            "launches": launches["trace_sample_megakernel"],
+            "launches": (launches["trace_sample_megakernel"]
+                         + new_path_launches["trace_sample_megakernel"]),
             "max_abs_err": err["C"], "ms": ms_c, "plain_ms": plain_c,
             "bound_ms": bound_c, "bound_by": by_c, "library_ms": None,
         },
@@ -3060,7 +3581,8 @@ def main() -> int:
         "name": "trace_surface", "route": "cuda",
         "source": "strolle_tpu_torch/csrc/trace_kernels.cu",
         "replaces": "strolle_tpu/ops/pallas/trace_kernels.py:328",
-        "launches": rt_launches["trace_surface"] + fused_launches["trace_surface"],
+        "launches": (rt_launches["trace_surface"] + fused_launches["trace_surface"]
+                     + new_path_launches["trace_surface"]),
         "max_abs_err": err["4"], "ms": ms_4, "plain_ms": plain_4,
         "bound_ms": bound_4, "bound_by": by_4, "library_ms": None,
     })

@@ -27,6 +27,11 @@ def scene_with_bvh(scene: Scene) -> Scene:
         material_id=geom.material_id[idx],
     )
     scene = scene.replace(geometry=geom, bvh=arrays)
+    if scene.motion is not None:
+        # per-triangle instance slots follow the reordering (the editor
+        # orders its own)
+        scene = scene.replace(motion=scene.motion.replace(
+            instance_id=scene.motion.instance_id[idx.to(scene.motion.instance_id.device)]))
     return scene.replace(clusters=build_clusters(scene))
 
 

@@ -1,7 +1,7 @@
 """Carry-over between the JAX package's data and the port's.
 
-The JAX package's Scene (with its atlas image, BvhArrays and cluster
-rows), Camera, RefAccumulator, the realtime frame's
+The JAX package's Scene (with its atlas image, BvhArrays, cluster rows
+and per-instance Motion), Camera, RefAccumulator, the realtime frame's
 RenderState (with its reservoirs, denoiser states, previous Surface and
 Camera) and AtmosphereLuts travel as nested dicts of numpy arrays
 (field name -> array, or a dict for a nested dataclass), and so do the
@@ -30,12 +30,12 @@ from .models.train import TrainableParams
 from .ops.hit import Surface
 from .restir.gi import GiReservoirs
 from .restir.reservoir import DiReservoirs
-from .scene.types import Geometry, Lights, Materials, Scene, make_atlas
+from .scene.types import Geometry, Lights, Materials, Motion, Scene, make_atlas
 from .sky.atmosphere import AtmosphereLuts
 
 _INT_FIELDS = {
     "material_id", "alpha_blend", "kind", "prev_kind", "remap", "killed", "child",
-    "child_count",
+    "child_count", "instance_id",
 }
 
 
@@ -55,13 +55,16 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
     """The port's Scene from a JAX Scene given as nested numpy dicts
     (``geometry``, ``materials``, ``lights`` sub-dicts; ``atlas`` None
     or the atlas image; ``bvh`` None or a dict of the BvhArrays fields;
-    ``clusters`` None or the [K, 8] rows; scalars and flags as they are)."""
+    ``motion`` absent, None or a dict of the Motion fields (instance_id,
+    prev_of_curr); ``clusters`` None or the [K, 8] rows; scalars and
+    flags as they are)."""
     device = resolve_device(device)
     mats = arrays["materials"]
     lights = arrays["lights"]
     atlas = arrays.get("atlas")
     bvh = arrays.get("bvh")
     clusters = arrays.get("clusters")
+    motion = arrays.get("motion")
     return Scene(
         geometry=Geometry(**_tensors(Geometry, arrays["geometry"], device)),
         materials=Materials(
@@ -83,6 +86,7 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
             **_tensors(BvhArrays, bvh, device, skip=("max_depth",)),
             max_depth=int(bvh["max_depth"]),
         ),
+        motion=None if motion is None else Motion(**_tensors(Motion, motion, device)),
         clusters=None
         if clusters is None
         else torch.tensor(np.asarray(clusters), dtype=torch.float32, device=device),
@@ -103,13 +107,14 @@ def _numpy(obj) -> dict:
 
 
 def scene_to_arrays(scene: Scene) -> dict:
-    """The inverse of ``scene_from_arrays``."""
+    """The inverse of ``scene_from_arrays`` (Motion included)."""
     out = {
         "geometry": _numpy(scene.geometry),
         "materials": _numpy(scene.materials),
         "lights": _numpy(scene.lights),
         "atlas": None if scene.atlas is None else scene.atlas.image.detach().cpu().numpy(),
         "bvh": None if scene.bvh is None else _numpy(scene.bvh),
+        "motion": None if scene.motion is None else _numpy(scene.motion),
         "clusters": None if scene.clusters is None else scene.clusters.detach().cpu().numpy(),
     }
     for k in ("sun_azimuth", "sun_altitude", "has_alpha", "flat_normals", "has_metal"):

@@ -47,8 +47,13 @@ from ..sky.atmosphere import luts_for, sample_atmosphere, sample_sky, sun_direct
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static pipeline configuration (the JAX package's, less ``mode``)."""
+    """Static pipeline configuration (the JAX package's). ``mode`` is the
+    camera mode the renderer picks a channel for; the frame itself
+    computes every channel whatever it says."""
 
+    #: image | di_diffuse | di_specular | gi_diffuse | gi_specular |
+    #: albedo | depth | reference | bvh_heatmap
+    mode: str = "image"
     #: SVGF on the diffuse channels that run
     denoise: bool = True
     needs_di: bool = True

@@ -48,11 +48,24 @@ def primary_pass(scene: Scene, camera: Camera, prev_camera: Camera,
     """Ray-cast primary visibility. Returns (Surface [H, W], velocity as
     (vel_x, vel_y) [H, W] planes): the hit point's screen motion against
     the previous camera, zeroed where small or where nothing was hit.
-    (The port's scenes carry no per-instance motion yet.)"""
+    Where the scene carries per-instance motion, the hit point first goes
+    back through its instance's previous-of-current affine (a miss takes
+    triangle 0's instance; its velocity is zeroed anyway)."""
     o, d = pixel_rays(camera, screen_grid(camera))
     surf = trace_surface(scene, o, d, use_pallas=use_pallas)
     curr_x, curr_y = world_to_screen_xy(camera, surf.point)
-    prev_x, prev_y = world_to_screen_xy(prev_camera, surf.point)
+    if scene.motion is not None:
+        inst = scene.motion.instance_id[torch.clamp(surf.tri, min=0).long()]
+        a = scene.motion.prev_of_curr[inst.long()]  # [H, W, 12]
+        p = surf.point
+        prev_point = torch.stack(
+            [a[..., 4 * r] * p[..., 0] + a[..., 4 * r + 1] * p[..., 1]
+             + a[..., 4 * r + 2] * p[..., 2] + a[..., 4 * r + 3] for r in range(3)],
+            dim=-1,
+        )
+    else:
+        prev_point = surf.point
+    prev_x, prev_y = world_to_screen_xy(prev_camera, prev_point)
     vel_x = curr_x - prev_x
     vel_y = curr_y - prev_y
     small = vel_x * vel_x + vel_y * vel_y < 0.001

@@ -5,9 +5,10 @@ pbrMetallicRoughness -> Material (perceptual roughness squared to
 linear), and base-colour textures packed into one atlas with normalised
 rects by the native guillotine allocator (``strolle_tpu_torch.native``,
 the JAX package's allocator, so rects match). Textures are decoded by
-``scene/png.py`` and taken to linear colour with the JAX loader's
-``** 2.2``. Textures larger than ``max_texture_size`` would need a
-resize, which is not ported: they raise NotImplementedError.
+``scene/png.py`` (its own PNG decoder, PIL for JPEG and the PNGs that
+decoder refuses) and taken to linear colour with the JAX loader's
+``** 2.2``; a texture larger than ``max_texture_size`` is resized with
+PIL in the JAX loader's arithmetic.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from .. import native
 from ..device import resolve_device
 from .build import MeshBuilder
-from .png import decode_png
+from .png import decode_rgba8
 from .types import Scene, compute_static_flags, make_atlas, make_lights, make_materials
 
 _COMPONENT_DTYPES = {
@@ -114,12 +115,50 @@ def _node_transform(node) -> np.ndarray:
 
 
 def decode_image(raw: bytes, srgb: bool) -> np.ndarray:
-    """PNG bytes -> f32 RGBA [H, W, 4] in [0, 1], RGB raised to 2.2 when
+    """Image bytes -> f32 RGBA [H, W, 4] in [0, 1], RGB raised to 2.2 when
     ``srgb`` (the JAX loader's linearisation)."""
-    a = decode_png(raw).astype(np.float32) / 255.0
+    a = decode_rgba8(raw).astype(np.float32) / 255.0
     if srgb:
         a[..., :3] = a[..., :3] ** 2.2
     return a
+
+
+def fit_texture(img: np.ndarray, max_texture_size: int) -> np.ndarray:
+    """``img`` shrunk with PIL's ``resize`` so that its longer side is
+    at most ``max_texture_size``, in the JAX loader's arithmetic (clip,
+    x255, uint8, resize, /255); smaller images as they are."""
+    if max(img.shape[:2]) <= max_texture_size:
+        return img
+    from PIL import Image
+
+    scale = max_texture_size / max(img.shape[:2])
+    nh = max(1, int(img.shape[0] * scale))
+    nw = max(1, int(img.shape[1] * scale))
+    pil = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).resize((nw, nh))
+    return np.asarray(pil, np.float32) / 255.0
+
+
+class AtlasPacker:
+    """A texture atlas being filled: the [size, size, 4] image, the
+    normalised rect [x, y, w, h] of each key, and the native guillotine
+    allocator behind them (the JAX package's, so rects match)."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.image = np.zeros((size, size, 4), np.float32)
+        self.rects: dict = {}
+        self.alloc = native.AtlasAllocator(size, size)
+
+    def add(self, key, img: np.ndarray) -> None:
+        """Packs ``img`` [h, w, 4] under ``key``; ValueError when full."""
+        h, w = img.shape[:2]
+        pos = self.alloc.alloc(w, h)
+        if pos is None:
+            raise ValueError("atlas full")
+        x, y = pos
+        self.image[y : y + h, x : x + w] = img
+        s = self.size
+        self.rects[key] = np.asarray([x / s, y / s, w / s, h / s], np.float32)
 
 
 def load_gltf(
@@ -162,43 +201,28 @@ def load_gltf(
     g = _Gltf(js, buffers)
 
     # --- materials + textures ----------------------------------------
-    image = np.zeros((atlas_size, atlas_size, 4), np.float32)
-    rects: dict = {}
+    packer = AtlasPacker(atlas_size)
     mat_records = []
-    with native.AtlasAllocator(atlas_size, atlas_size) as alloc:
-        for mat in js.get("materials", [{}]):
-            pbr = mat.get("pbrMetallicRoughness", {})
-            rec = {
-                "base_color": list(pbr.get("baseColorFactor", [1, 1, 1, 1])),
-                "emissive": list(mat.get("emissiveFactor", [0, 0, 0])) + [1.0],
-                # perceptual -> linear roughness
-                "roughness": float(pbr.get("roughnessFactor", 1.0)) ** 2,
-                "metallic": float(pbr.get("metallicFactor", 1.0)),
-                "reflectance": 0.5,
-                "alpha_blend": 1 if mat.get("alphaMode") == "BLEND" else 0,
-            }
-            tex = pbr.get("baseColorTexture")
-            src = None if tex is None else js["textures"][tex["index"]].get("source")
-            if src is not None:
-                if src not in rects:
-                    img = decode_image(g.image_bytes(src), srgb=True)
-                    if max(img.shape[:2]) > max_texture_size:
-                        raise NotImplementedError(
-                            f"texture {img.shape[1]}x{img.shape[0]} > max_texture_size="
-                            f"{max_texture_size}: resizing is not ported"
-                        )
-                    h, w = img.shape[:2]
-                    pos = alloc.alloc(w, h)
-                    if pos is None:
-                        raise ValueError("atlas full")
-                    x, y = pos
-                    image[y : y + h, x : x + w] = img
-                    rects[src] = np.asarray(
-                        [x / atlas_size, y / atlas_size, w / atlas_size, h / atlas_size],
-                        np.float32,
-                    )
-                rec["base_color_tex"] = list(map(float, rects[src]))
-            mat_records.append(rec)
+    for mat in js.get("materials", [{}]):
+        pbr = mat.get("pbrMetallicRoughness", {})
+        rec = {
+            "base_color": list(pbr.get("baseColorFactor", [1, 1, 1, 1])),
+            "emissive": list(mat.get("emissiveFactor", [0, 0, 0])) + [1.0],
+            # perceptual -> linear roughness
+            "roughness": float(pbr.get("roughnessFactor", 1.0)) ** 2,
+            "metallic": float(pbr.get("metallicFactor", 1.0)),
+            "reflectance": 0.5,
+            "alpha_blend": 1 if mat.get("alphaMode") == "BLEND" else 0,
+        }
+        tex = pbr.get("baseColorTexture")
+        src = None if tex is None else js["textures"][tex["index"]].get("source")
+        if src is not None:
+            if src not in packer.rects:
+                img = decode_image(g.image_bytes(src), srgb=True)
+                packer.add(src, fit_texture(img, max_texture_size))
+            rec["base_color_tex"] = list(map(float, packer.rects[src]))
+        mat_records.append(rec)
+    packer.alloc.close()
     if not mat_records:
         mat_records = [{}]
 
@@ -237,7 +261,7 @@ def load_gltf(
         geometry=geometry,
         materials=materials,
         lights=make_lights(lights or [], capacity=light_capacity, device=device),
-        atlas=make_atlas(torch.as_tensor(image, device=device)) if rects else None,
+        atlas=make_atlas(torch.tensor(packer.image, device=device)) if packer.rects else None,
         sun_azimuth=float(sun_azimuth),
         sun_altitude=float(sun_altitude),
         has_alpha=any(r.get("alpha_blend") for r in mat_records),

@@ -1,15 +1,21 @@
-"""A small PNG decoder (zlib + numpy) for the glTF loader's textures.
+"""Texture decoding for the glTF loader: a small PNG decoder (zlib +
+numpy) and PIL for the rest.
 
-The JAX package decodes textures with PIL, which is not among the port's
-dependencies. This decoder covers non-interlaced images of colour type
-0 (grey, 1/2/4/8 bits), 2 (RGB, 8 bits), 3 (palette, 1/2/4/8 bits, with
-tRNS alpha), 4 (grey + alpha, 8 bits) and 6 (RGBA, 8 bits), with the
-five scanline filters, and returns RGBA8 as PIL's ``convert("RGBA")``
-does. Anything else raises NotImplementedError.
+``decode_png`` covers non-interlaced images of colour type 0 (grey,
+1/2/4/8 bits), 2 (RGB, 8 bits), 3 (palette, 1/2/4/8 bits, with tRNS
+alpha), 4 (grey + alpha, 8 bits) and 6 (RGBA, 8 bits), with the five
+scanline filters, and returns RGBA8 as PIL's ``convert("RGBA")`` does;
+anything else raises NotImplementedError. ``decode_rgba8``, the loader's
+entry, hands what ``decode_png`` refuses (JPEG, 16-bit and interlaced
+PNGs, tRNS colour keys) to PIL's ``Image.open(...).convert("RGBA")``, as
+the JAX loader decodes every texture. PIL is imported on that path
+only: it is a host dependency of those textures (and of the viewer's
+JPEG stream), not of the port's PNGs.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
@@ -129,3 +135,17 @@ def decode_png(data: bytes) -> np.ndarray:
         rgba[..., :3] = s[..., :3]
         rgba[..., 3] = s[..., 3] if color == 6 else 255
     return rgba
+
+
+def decode_rgba8(data: bytes) -> np.ndarray:
+    """Image bytes -> uint8 RGBA [height, width, 4]: ``decode_png`` where
+    it takes the image, else PIL's ``convert("RGBA")``."""
+    if data[:8] == _SIGNATURE:
+        try:
+            return decode_png(data)
+        except NotImplementedError:
+            pass
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as img:
+        return np.asarray(img.convert("RGBA"), np.uint8)

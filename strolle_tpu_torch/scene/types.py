@@ -112,6 +112,20 @@ def make_atlas(image) -> Atlas:
 
 
 @dataclasses.dataclass(frozen=True)
+class Motion:
+    """Per-instance object motion for the velocity of moving objects: each
+    instance's previous transform times the inverse of its current one,
+    baked on the host into one row-major 3x4 affine, so that
+    prev_point = A @ [point, 1]."""
+
+    instance_id: torch.Tensor  # i32[T] per-triangle instance slot
+    prev_of_curr: torch.Tensor  # f32[I, 12] row-major 3x4 affine
+
+    def replace(self, **updates) -> "Motion":
+        return dataclasses.replace(self, **updates)
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     geometry: Geometry
     materials: Materials
@@ -121,6 +135,9 @@ class Scene:
     sun_altitude: float
     #: Flattened BVH (``bvh.scene_with_bvh``), None until built.
     bvh: Optional["object"] = None
+    #: Per-instance previous transforms; None for a static scene, whose
+    #: velocity comes from camera motion alone.
+    motion: Optional[Motion] = None
     #: Cluster boxes [K, 8] of the big-scene kernels, built with the BVH
     #: (``bvh.build_clusters``); None for scenes of up to 1024 triangles.
     clusters: Optional[torch.Tensor] = None
@@ -221,4 +238,21 @@ def make_lights(records: list[dict], capacity: int | None = None, device=None) -
         remap=_to(np.full((cap,), -1), device, torch.int32),
         killed=_to(np.zeros((cap,)), device, torch.int32),
         count=count,
+    )
+
+
+def commit_lights(lights: Lights) -> Lights:
+    """The lights with their current data copied into the previous-frame
+    slots and the kill/remap markers cleared (one frame's flush)."""
+    return dataclasses.replace(
+        lights,
+        prev_pos=lights.pos,
+        prev_radius=lights.radius,
+        prev_color=lights.color,
+        prev_range=lights.range,
+        prev_kind=lights.kind,
+        prev_spot_dir=lights.spot_dir,
+        prev_spot_angle=lights.spot_angle,
+        remap=torch.full_like(lights.remap, -1),
+        killed=torch.zeros_like(lights.killed),
     )

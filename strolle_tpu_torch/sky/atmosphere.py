@@ -484,3 +484,11 @@ def sample_atmosphere(luts: AtmosphereLuts, sun_dir, ray_dir):
     )
     return (lum + sun_contrib) * EXPOSURE
 
+
+
+def sun_color(luts: AtmosphereLuts, sun_dir):
+    """The sun light's colour: the transmittance at the view position
+    toward ``sun_dir`` [..., 3] x EXPOSURE x 5."""
+    view = _c("view_pos", sun_dir.device)
+    trans = sample_lut_at(luts.transmittance, torch.broadcast_to(view, sun_dir.shape), sun_dir)
+    return trans * EXPOSURE * 5.0
