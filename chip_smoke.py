@@ -128,6 +128,24 @@ Run from the root of the repository:  python3 chip_smoke.py
    through kernel C), counted, one GET of the frame, and kernels A, B and
    4 against their plain versions on that scene; ms per tick (rebuild,
    refit) and per engine frame, and one engine frame under the profiler.
+   Then (phase 5j) the multi-device layer at 800x608, at world size 1
+   under NCCL and counted: the split Cornell sample (kernel C) bit-equal
+   to trace_sample; one GI cycle of the dungeon with the sky split with
+   STROLLE_PROBE_KERNEL=1 (kernels 5 and 6, kernel 7 never), every
+   channel and state leaf bit-equal to render_frame's; train_step_sharded
+   (A and B) against train_step; dryrun_multichip(1). Then two gloo ranks
+   in subprocesses sharing the card, each on its 304 rows, counted: the
+   sample, six Cornell frames and a training step, held against the
+   unsplit ones (images to tests/test_sharding.py's criteria; gradients
+   at rtol 1e-4, atol 1e-6 against the same row blocks summed in one
+   process, and within 1e-3 of each field's largest component against
+   train_step), with ms per call and the collectives' time. Then (phase
+   5k) each example's main() at its default size, counted, its images
+   written and finite (the viewer: 2 frames and one GET of its frame),
+   and stress_large's kernels 5 and 6 (262,144 triangles, 1,024
+   clusters) against their plain versions on 32 seeded image rows of
+   primaries and light shadow rays, with the warps whose cluster lists
+   overflow LIST_CAP counted there and over every primary.
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler; kernels A and B also
@@ -258,6 +276,10 @@ ROUTE_BYTES = {"di": (21, 17), "gi": (69, 21)}
 #: Most device operations one fused pass (restir/di.py::probe_fused) may
 #: take on the card: the kernel's one launch, with room to spare.
 FUSED_PASS_MAX_OPS = 5
+#: Realtime frames under the profiler in phase 6's frame profiles (after
+#: one warm-up frame): each costs ~13 s of script time for the profiler's
+#: ~30,000 device records (on an H100 host, 700 W).
+PROFILE_RT_FRAMES = 2
 
 
 class CheckFailed(RuntimeError):
@@ -3012,6 +3034,449 @@ def drive_engine(dg, dcam, device, err: dict) -> dict:
     return {"launches": launches, "info": info}
 
 
+#: Phase 5j, the multi-device layer: the two-rank check's ranks (gloo
+#: subprocesses on the one card, each killed after MULTI_CHILD_TIMEOUT s),
+#: the seeds of the split Cornell frames and the dungeon's split GI cycle.
+MULTI_RANKS = 2
+MULTI_CHILD_TIMEOUT = 300
+MULTI_FRAME_SEED = 1000
+MULTI_DG_SEED = 9000
+MULTI_FRAMES = 6
+#: Phase 5k, the examples: frames (and fit_materials' steps) at each
+#: example's default size; stress_large's seeded subset of image rows on
+#: which kernels 5 and 6 are held against their plain versions.
+EXAMPLE_FRAMES = 3
+EXAMPLE_FIT_STEPS = 5
+STRESS_SUBSET_ROWS = 32
+
+
+def images_match(single: torch.Tensor, split: torch.Tensor) -> dict:
+    """tests/test_sharding.py's criteria: under 1% of pixels off by more
+    than 1e-5, the median difference at most 1e-6, no row with 25% of its
+    pixels off. Returns the numbers, and whether the two are bit-equal."""
+    diff = (single - split).abs().amax(-1)
+    bad = diff > 1e-5
+    out = {"bit_equal": bool(torch.equal(single, split)), "frac_bad": bad.float().mean().item(),
+           "median": diff.median().item(), "row_max": bad.float().mean(1).max().item()}
+    out["ok"] = out["frac_bad"] < 0.01 and out["median"] <= 1e-6 and out["row_max"] < 0.25
+    return out
+
+
+def tree_leaves(tree) -> list:
+    from strolle_tpu_torch.utils.pytree import tree_map
+
+    out = []
+    tree_map(lambda x: out.append(x) or x, tree)
+    return out
+
+
+def grad_diffs(grads, grads_m) -> dict:
+    """Per gradient field: the largest difference, the field's largest
+    component, bit-equality and rtol 1e-4, atol 1e-6 elementwise."""
+    from strolle_tpu_torch.models.train import FIELDS
+
+    out = {}
+    for f in FIELDS:
+        a = getattr(grads, f)
+        b = getattr(grads_m, f).to(a.device)
+        out[f] = {"max_abs_diff": (a - b).abs().max().item(), "largest": a.abs().max().item(),
+                  "bit_equal": bool(torch.equal(a, b)),
+                  "elementwise_ok": bool(torch.allclose(b, a, rtol=1e-4, atol=1e-6))}
+    return out
+
+
+def block_grads(params, scene, cam, target, n: int):
+    """The training step's loss and gradients as ``n`` ranks compute them,
+    in one process: each block of rows differentiated alone
+    (``models.train.rows_loss``), the blocks summed in rank order, the
+    float32 order of the ranks' all-reduce."""
+    from strolle_tpu_torch.models import train
+
+    parts = [train._value_and_grad(
+        lambda p, i=i: train.rows_loss(p, scene, cam, target, TRAIN_SEED, TRAIN_DEPTH, i, n),
+        params) for i in range(n)]
+    loss, grads = parts[0]
+    for l2, g2 in parts[1:]:
+        loss = loss + l2
+        grads = train.TrainableParams(*(getattr(grads, f) + getattr(g2, f) for f in train.FIELDS))
+    return loss, grads
+
+
+def counted(fn, launches: dict, name: str):
+    """``fn()`` with the launch counts set to 0 before and read after (into
+    ``launches[name]``), timed with CUDA events: (result, ms)."""
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+
+    cuda_lib.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    launches[name] = dict(cuda_lib.LAUNCHES)
+    return out, start.elapsed_time(end)
+
+
+def rank_child(argv: list) -> int:
+    """One rank of phase 5j's two-rank check (``chip_smoke.py --rank-child
+    RANK WORLD STORE OUT``): a gloo rank on the one card, which renders
+    the Cornell sample, MULTI_FRAMES realtime frames and one training step
+    with the rows split over the ranks, counted, and writes its results
+    (rank 0 also the images and gradients) to OUT."""
+    import torch.distributed as dist
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    from strolle_tpu_torch.models.train import FIELDS, params_from_scene, train_step_sharded
+    from strolle_tpu_torch.ops.kernels import cuda_lib
+    from strolle_tpu_torch.parallel import frame_sharding as fs
+    from strolle_tpu_torch.parallel import sharding
+    from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+
+    cuda_lib.library()
+    mesh = sharding.make_mesh(world)
+    scene, cam = cornell_box(), cornell_camera(WIDTH, HEIGHT)
+    launches, ms = {}, {}
+    img, _ = counted(
+        lambda: sharding.render_sample_sharded(mesh, scene, cam, SEED, depth=DEPTH), launches,
+        "sample")
+    ms["sample"] = time_ms(lambda: sharding.render_sample_sharded(mesh, scene, cam, SEED,
+                                                                  depth=DEPTH), 0, 3)
+    state = fs.init_state_sharded(mesh, cam)
+    rep = fs.replicate_scene(mesh, scene)
+
+    def frames():
+        nonlocal state
+        imgs = []
+        for f in range(MULTI_FRAMES):
+            ch, state = fs.render_frame_sharded(mesh, rep, cam, state, MULTI_FRAME_SEED + f)
+            imgs.append(ch["image"])
+        return imgs
+
+    imgs, _ = counted(frames, launches, "frames")
+    _, t = counted(frames, {}, "x")  # the next GI cycle, warm
+    ms["frame"] = t / MULTI_FRAMES
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=cam.device)
+
+    def step():
+        return train_step_sharded(mesh, params_from_scene(scene), scene, cam, target, TRAIN_SEED,
+                                  depth=TRAIN_DEPTH)
+
+    (loss, _, grads), _ = counted(step, launches, "train")
+    ms["step"] = time_ms(step, 0, 1)
+    # the collectives alone: the sample's all-gather and the step's all-reduce
+    block, _, _ = sharding.sample_rows(mesh, scene, cam, SEED, DEPTH)
+    ms["gather_sample_rows"] = time_ms(lambda: sharding.gather_rows(block), warmup=1, iters=5)
+    g = [getattr(grads, f) for f in FIELDS]
+    ms["all_reduce_grads"] = time_ms(lambda: sharding.all_reduce_sum(g), warmup=1, iters=5)
+    res = {"rank": rank, "launches": launches, "ms": ms, "rows": block.shape[0]}
+    if rank == 0:
+        res.update(sample=img.cpu(), frames=[x.cpu() for x in imgs], loss=loss.cpu(),
+                   grads=grads)
+    torch.save(res, f"{out}.rank{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(world: int, tmp: str) -> list:
+    env = dict(os.environ)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    script = os.path.abspath(__file__)
+    return [subprocess.Popen([sys.executable, script, "--rank-child", str(r), str(world),
+                              os.path.join(tmp, "store"), os.path.join(tmp, "out")],
+                             cwd=os.path.dirname(script), env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+
+def wait_ranks(procs: list, tmp: str) -> list:
+    """Each rank's results; every child killed after MULTI_CHILD_TIMEOUT s."""
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=MULTI_CHILD_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                outs.append(("", "timed out"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} of the two-rank check failed (rc {p.returncode}):\n"
+              f"{err[-3000:]}")
+    return [torch.load(os.path.join(tmp, f"out.rank{r}"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
+    """Phase 5j: the multi-device layer at 800x608. At world size 1 under
+    NCCL (make_mesh(1)), counted: the split Cornell sample (kernel C)
+    bit-equal to ``trace_sample`` (``img``); one 6-frame GI cycle of the
+    dungeon with the sky through replicate_scene, init_state_sharded and
+    render_frame_sharded with STROLLE_PROBE_KERNEL=1 (kernels 5 and 6 as
+    the schedule says, kernel 7 never: a mesh takes the tensor probe),
+    every channel and state leaf bit-equal to render_frame's on the same
+    seeds with the switch off; train_step_sharded (kernels A and B)
+    against train_step; dryrun_multichip(1). Then MULTI_RANKS gloo ranks
+    in subprocesses on the one card, each on its own rows: the sample,
+    MULTI_FRAMES Cornell frames and one training step, held against the
+    unsplit ones (images to tests/test_sharding.py's criteria, gradients
+    at rtol 1e-4, atol 1e-6), each rank's counts printed. Returns the
+    launches of the world-size-1 runs and the numbers."""
+    import torch.distributed as dist
+
+    from strolle_tpu_torch.entry import dryrun_multichip
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame
+    from strolle_tpu_torch.models.train import params_from_scene, train_step, train_step_sharded
+    from strolle_tpu_torch.parallel import frame_sharding as fs
+    from strolle_tpu_torch.parallel import sharding
+
+    print(f"multi-device: torch {torch.__version__}, nccl available "
+          f"{dist.is_nccl_available()}, gloo available {dist.is_gloo_available()}", flush=True)
+    mesh = sharding.make_mesh(1)
+    check(dist.get_backend() == "nccl", f"world size 1 runs {dist.get_backend()}, not nccl")
+    launches, ms, info = {}, {}, {}
+
+    # (a) the sample
+    sample, ms["sample_split"] = counted(
+        lambda: sharding.render_sample_sharded(mesh, scene, cam, SEED, depth=DEPTH), launches,
+        "sample")
+    check_launches(launches["sample"], {"trace_sample_megakernel": 1}, "split sample")
+    check(torch.equal(sample, img), "the split sample differs from trace_sample")
+    ms["sample_split"] = time_ms(
+        lambda: sharding.render_sample_sharded(mesh, scene, cam, SEED, depth=DEPTH), 1, 5)
+    ms["sample_unsplit"] = time_ms(
+        lambda: trace_sample(scene, cam, SEED, depth=DEPTH, include_sky=False), 1, 5)
+
+    # (b) one GI cycle of the dungeon, split and unsplit in lockstep
+    dcfg = RenderConfig(include_sky=True)
+    rep = fs.replicate_scene(mesh, dg)
+    split = fs.init_state_sharded(mesh, dcam)
+    state = init_state(dcam, device=dcam.device)
+    ms_split = ms_unsplit = 0.0
+    frame_launches = collections.Counter()
+    for f in range(MULTI_FRAMES):
+        with probe_switch(True):
+            (ch_m, split), t = counted(
+                lambda: fs.render_frame_sharded(mesh, rep, dcam, split, MULTI_DG_SEED + f, dcfg,
+                                                dluts), launches, "frame")
+        frame_launches.update(launches.pop("frame"))
+        ms_split += t
+        (ch, state), t = counted(
+            lambda: render_frame(dg, dcam, state, MULTI_DG_SEED + f, dcfg, dluts), {}, "x")
+        ms_unsplit += t
+        for k in ch:
+            check(torch.equal(ch[k], ch_m[k]), f"split dungeon frame {f}: {k} differs")
+    for a, b in zip(tree_leaves(state), tree_leaves(split), strict=True):
+        check(torch.equal(a, b), "split dungeon frames: a state leaf differs")
+    launches["dungeon_frames"] = dict(frame_launches)
+    check_launches(frame_launches, realtime_launches(MULTI_FRAMES, big=STRATEGY_KERNELS["stream"]),
+                   "split dungeon frames (STROLLE_PROBE_KERNEL=1)")
+    ms["dungeon_frame_split"] = ms_split / MULTI_FRAMES
+    ms["dungeon_frame_unsplit"] = ms_unsplit / MULTI_FRAMES
+
+    # (c) the training step
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=cam.device)
+    params = params_from_scene(scene)
+    def split_step():
+        return train_step_sharded(mesh, params, scene, cam, target, TRAIN_SEED, depth=TRAIN_DEPTH)
+
+    def unsplit_step():
+        return train_step(params, scene, cam, target, TRAIN_SEED, depth=TRAIN_DEPTH)
+
+    (loss_m, _, grads_m), _ = counted(split_step, launches, "train")
+    n = TRAIN_DEPTH + 1
+    check_launches(launches["train"], {"trace_closest_brute": n, "trace_anyhit_brute": n},
+                   "train_step_sharded")
+    loss, _, grads = unsplit_step()
+    ms["step_split"] = time_ms(split_step, 0, 1)
+    ms["step_unsplit"] = time_ms(unsplit_step, 0, 1)
+    check(math.isclose(loss.item(), loss_m.item(), rel_tol=1e-5), "world size 1 step: loss")
+    info["world1_grads"] = grad_diffs(grads, grads_m)
+    for f, d in info["world1_grads"].items():
+        check(d["elementwise_ok"], f"world size 1 step: {f} gradients differ: {d}")
+    loss_b, grads_b = block_grads(params, scene, cam, target, MULTI_RANKS)
+
+    # (d) the dry run
+    (_, ms["dryrun"]) = counted(lambda: dryrun_multichip(1), launches, "dryrun")
+
+    # (e) the unsplit Cornell frames the two ranks are held to, then the ranks
+    state = init_state(cam, device=cam.device)
+    frames = []
+    for f in range(MULTI_FRAMES):
+        ch, state = render_frame(scene, cam, state, MULTI_FRAME_SEED + f)
+        frames.append(ch["image"])
+    ms["frame_unsplit"] = time_ms(lambda: render_frame(scene, cam, state, 5000), 1, 3)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = wait_ranks(spawn_ranks(MULTI_RANKS, tmp), tmp)
+        info["two_rank_wall_s"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    info["two_rank_sample"] = images_match(img.cpu(), r0["sample"])
+    info["two_rank_frames"] = [images_match(a.cpu(), b) for a, b in zip(frames, r0["frames"])]
+    for what, m in [("sample", info["two_rank_sample"])] + [
+            (f"frame {f}", m) for f, m in enumerate(info["two_rank_frames"])]:
+        check(m["ok"], f"two ranks: the {what} is off the unsplit one: {m}")
+    # The ranks' gradients against the same blocks differentiated and summed
+    # in one process (the all-reduce's float32 order): rtol 1e-4, atol 1e-6
+    # elementwise. Against train_step's one sum over every pixel: within
+    # 1e-3 of each field's largest component (the light gradients sum
+    # 486,400 terms that largely cancel, in another order).
+    loss_r = r0["loss"].to(loss.device)
+    check(math.isclose(loss_b.item(), loss_r.item(), rel_tol=1e-5)
+          and math.isclose(loss.item(), loss_r.item(), rel_tol=1e-5), "two-rank step: loss")
+    info["two_rank_grads_vs_blocks"] = grad_diffs(grads_b, r0["grads"])
+    info["two_rank_grads_vs_train_step"] = grad_diffs(grads, r0["grads"])
+    for f, d in info["two_rank_grads_vs_blocks"].items():
+        check(d["elementwise_ok"], f"two-rank step: {f} gradients off the blocks' sum: {d}")
+    for f, d in info["two_rank_grads_vs_train_step"].items():
+        check(d["max_abs_diff"] <= 1e-3 * d["largest"] + 1e-6,
+              f"two-rank step: {f} gradients off train_step's: {d}")
+    want_frames = realtime_launches(MULTI_FRAMES)
+    for r in ranks:
+        print(f"two ranks: rank {r['rank']} ({r['rows']} rows) launches {r['launches']}, ms "
+              f"{r['ms']}", flush=True)
+        check_launches(r["launches"]["sample"], {"trace_sample_megakernel": 1}, "rank sample")
+        check_launches(r["launches"]["frames"], want_frames, "rank frames")
+        check_launches(r["launches"]["train"], {"trace_closest_brute": n,
+                                                "trace_anyhit_brute": n}, "rank step")
+    info["two_rank_ms"] = [r["ms"] for r in ranks]
+    info["two_rank_launches"] = [r["launches"] for r in ranks]
+    info["ms"] = ms
+    info["launches"] = launches
+    print(f"multi-device: {json.dumps(info)}", flush=True)
+    dist.destroy_process_group()
+    total = collections.Counter()
+    for v in launches.values():
+        total.update(v)
+    return {"launches": total, "info": info}
+
+
+def example_runs() -> list:
+    """(name, argv, the launches it must make) of each example run, at the
+    example's default size."""
+    fr = str(EXAMPLE_FRAMES)
+    realtime = realtime_launches(EXAMPLE_FRAMES)
+    big = realtime_launches(EXAMPLE_FRAMES, big=STRATEGY_KERNELS["stream"])
+    fit = EXAMPLE_FIT_STEPS * (TRAIN_DEPTH + 1)
+    return [
+        ("cornell", ["--frames", fr], realtime),
+        ("cornell", ["--frames", fr, "--mode", "reference"],
+         {"trace_sample_megakernel": EXAMPLE_FRAMES}),
+        ("demo", ["--frames", fr], big),
+        ("minecraft", ["--frames", fr], realtime),
+        ("stress_bvh", ["--frames", fr], realtime),
+        ("stress_lights", ["--frames", fr], realtime),
+        ("stress_large", ["--frames", fr], big),
+        ("fit_materials", ["--steps", str(EXAMPLE_FIT_STEPS)],
+         {"trace_sample_megakernel": 48, "trace_closest_brute": fit, "trace_anyhit_brute": fit}),
+        ("viewer", ["--frames", "2", "--port", "0"], realtime_launches(2)),
+    ]
+
+
+def hold_stress_large(scene, cam, device) -> dict:
+    """Kernels 5 and 6 against their plain versions on stress_large's
+    262,144 triangles: STRESS_SUBSET_ROWS seeded image rows of its
+    primaries and of their bounce-0 shadow rays toward the lights; and
+    the share of warps whose cluster lists overflow LIST_CAP, on the
+    subset and over every primary."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
+    rows = torch.tensor(np.sort(np.random.RandomState(5).choice(
+        cam.height, STRESS_SUBSET_ROWS, replace=False)), device=device)
+    t0 = time.perf_counter()
+    out = {"rows": STRESS_SUBSET_ROWS, "rays": STRESS_SUBSET_ROWS * cam.width}
+    for name, anyhit, (o, d, t_max) in (("primary", False, (po, pd, None)),
+                                        ("lights", True, (so, sd, slen))):
+        o, d = o[rows].contiguous(), d[rows].contiguous()
+        t_max = None if t_max is None else t_max[rows].contiguous()
+        x = stream_inputs(scene, o, d, t_max)
+        got = stream_launch(x, anyhit)
+        want = stream_plain(x, anyhit)
+        torch.cuda.synchronize()
+        k = "6" if anyhit else "5"
+        what = f"kernel {k} (stress_large {name}, {o.numel() // 3} rays)"
+        mism, e = stream_mismatch(got, want, anyhit, what)
+        check(mism == 0, f"{what}: {mism} rays differ from the plain version")
+        _, _, count = sk.warp_lists(x["clus"], x["o"].reshape(-1, 3), x["d"].reshape(-1, 3),
+                                    x["cap"].reshape(-1))
+        out[name] = {"mismatches": mism, "max_abs_err": e, "warps": count.numel(),
+                     "warps_overflowing": int((count > sk.LIST_CAP).sum()),
+                     "most_clusters_a_warp": int(count.max())}
+    # every primary warp of the frame, in chunks
+    over = warps = most = 0
+    fo, fd = po.reshape(-1, 3), pd.reshape(-1, 3)
+    for i in range(0, fo.shape[0], 32768):
+        o, d = fo[i:i + 32768].contiguous(), fd[i:i + 32768].contiguous()
+        cap = sk.scene_tcap(scene.clusters, o, d)
+        _, _, count = sk.warp_lists(scene.clusters, o, d, cap)
+        over += int((count > sk.LIST_CAP).sum())
+        warps += count.numel()
+        most = max(most, int(count.max()))
+    out["all_primaries"] = {"warps": warps, "warps_overflowing": over,
+                            "most_clusters_a_warp": most}
+    out["check_s"] = time.perf_counter() - t0
+    print(f"stress_large: kernels 5 and 6 against their plain versions {json.dumps(out)}"
+          + ("" if over or out["primary"]["warps_overflowing"] or out["lights"]["warps_overflowing"]
+             else f"; no warp overflows LIST_CAP = {sk.LIST_CAP}"), flush=True)
+    return out
+
+
+def drive_examples(device) -> dict:
+    """Phase 5k: each example's main() in-process at its default size
+    (EXAMPLE_FRAMES realtime frames, EXAMPLE_FIT_STEPS of fit_materials,
+    the viewer with 2 frames on a free port and one GET of its frame),
+    counted: its kernels launch as its path says; its images written and
+    finite. Then stress_large's kernels 5 and 6 against their plain
+    versions. Returns the launches and the numbers."""
+    import importlib
+
+    launches, info = {}, {}
+    total = collections.Counter()
+    large = None
+    for name, argv, want in example_runs():
+        main = importlib.import_module(f"strolle_tpu_torch.examples.{name}").main
+        key = name + ("_reference" if "reference" in argv else "")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res, _ = counted(lambda: main(argv + ["--out", tmp]), launches, key)
+            wall = time.perf_counter() - t0
+            if name == "viewer":
+                from PIL import Image
+
+                with Image.open(res["jpg"]) as im:
+                    check(im.size == (512, 512), f"viewer: frame size {im.size}")
+                    check(np.asarray(im).mean() > 1.0, "viewer: a black frame")
+                check(res["frames"] == 2, "viewer: frame count")
+                kept = {k: res[k] for k in ("port", "jpg_bytes", "frames")}
+            else:
+                check(bool(res["pngs"]) and all(os.path.exists(p) for p in res["pngs"]),
+                      f"{key}: no image written")
+                check(res["finite"], f"{key}: an image is not finite")
+                kept = {k: v for k, v in res.items() if k not in ("pngs", "scene", "camera")}
+                kept["pngs"] = len(res["pngs"])
+        check_launches(launches[key], want, f"example {key}")
+        total.update(launches[key])
+        info[key] = {"wall_s": wall, "launches": launches[key], **kept}
+        print(f"example {key}: {json.dumps(info[key])}", flush=True)
+        if name == "stress_large":
+            large = res
+            check(res["stream"] and res["triangles"] == 262144 and res["clusters"] == 1024,
+                  "stress_large: not 262,144 triangles in 1,024 clusters under 'stream'")
+    info["stress_large_hold"] = hold_stress_large(large["scene"], large["camera"], device)
+    return {"launches": total, "info": info}
+
+
 T_START = time.perf_counter()
 
 
@@ -3297,6 +3762,12 @@ def main() -> int:
     phase("5i")
     engine = drive_engine(dg, dcam, device, err)
 
+    # --- 5j. the multi-device layer; 5k. the examples ----------------------
+    phase("5j")
+    multi = drive_multidevice(scene, cam, img, dg, dcam, dluts)
+    phase("5k")
+    examples = drive_examples(device)
+
     # --- 6. timings -----------------------------------------------------
     phase("6")
     # the torch BVH traversal on the card: trace_closest's route under
@@ -3386,7 +3857,7 @@ def main() -> int:
         _, holder["state"] = render_frame_fused(scene, cam, holder["state"], holder["seed"])
         holder["seed"] += 1
 
-    rt_profile = profile_frames(rt_frame, frames=6)
+    rt_profile = profile_frames(rt_frame, frames=PROFILE_RT_FRAMES)
 
     # the dungeon: both modes under each strategy in turns, then the
     # stream route's render_reference, stages and profile; kernels 5 and 6
@@ -3408,7 +3879,7 @@ def main() -> int:
                                                  dcfg, dluts)
         dholder["seed"] += 1
 
-    drt_profile = profile_frames(drt_frame, frames=6)
+    drt_profile = profile_frames(drt_frame, frames=PROFILE_RT_FRAMES)
     # kernel 5 on the realtime frame's primary rays, kernel 6 on the
     # reference loop's bounce-0 shadow rays toward the lights
     x5 = stream_inputs(dg, *ssets["primary"][:2])
@@ -3478,7 +3949,7 @@ def main() -> int:
             pholder["seed"] += 1
 
         with probe_switch(True):
-            probe_profiles[name] = profile_frames(p_frame, frames=6)
+            probe_profiles[name] = profile_frames(p_frame, frames=PROFILE_RT_FRAMES)
     print(f"kernel 7 alone: {probe_t}; DI/GI stage ms in turns (switch off, on, on, off): "
           f"{probe_stages}", flush=True)
 
@@ -3536,15 +4007,18 @@ def main() -> int:
         "restir_train": restir_train_info,
         "alpha": alpha_info,
         "engine": engine["info"],
+        "multi_device": multi["info"],
+        "examples": examples["info"],
         "total_s": time.perf_counter() - T_START,
     }
     print("timings: " + json.dumps(timings), flush=True)
 
-    # the launches of the differentiable, alpha and engine phases (5f-5i)
+    # the launches of the differentiable, alpha, engine, multi-device and
+    # example phases (5f-5k)
     new_path_launches = collections.Counter()
     alpha_counts = [v for k, v in alpha_info.items() if not k.endswith("_ms")]
     for counts in (train_info["launches"], restir_train_info["launches"], *alpha_counts,
-                   engine["launches"]):
+                   engine["launches"], multi["launches"], examples["launches"]):
         new_path_launches.update(counts)
     kernels = [
         {
@@ -3645,4 +4119,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2:]))
     sys.exit(main())

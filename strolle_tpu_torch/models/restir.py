@@ -17,9 +17,13 @@ stages:
 package's does: a channel that is off is zero and its state passes
 through.
 
-The stage functions keep the JAX package's names and arguments (less
-the device mesh), so a test can feed both packages the same inputs stage
-by stage. The frame
+The stage functions keep the JAX package's names and arguments (the
+device mesh a keyword at the end), so a test can feed both packages the
+same inputs stage by stage. With ``mesh`` (a ``torch.distributed``
+DeviceMesh, ``parallel/frame_sharding.py``) the prelude's primary pass
+and the DI and GI stages run under ``ops.trace.trace_rows_sharded``:
+each rank traces its own block of rows and the blocks are gathered,
+while every other stage runs at full height on every rank. The frame
 counter is a Python int: the GI schedule is decided on the host and no
 frame reads a tensor back to pick its passes.
 """
@@ -36,6 +40,7 @@ from ..denoise.svgf import DenoiserState, denoise_channel, denoise_pair
 from ..device import resolve_device
 from ..ops import bluenoise, gather, rng
 from ..ops.hit import Surface
+from ..ops.trace import trace_rows_sharded
 from ..restir import di as di_mod
 from ..restir import gi as gi_mod
 from ..restir.gi import GiReservoirs
@@ -105,10 +110,12 @@ def derive_seed(seed: int, k: int) -> int:
 
 
 def render_frame(scene: Scene, camera: Camera, state: RenderState, seed: int,
-                 config: RenderConfig = RenderConfig(), luts=None):
+                 config: RenderConfig = RenderConfig(), luts=None, mesh=None):
     """Renders one frame; returns (channels dict, new state). ``luts``
     default to the sun-altitude-keyed cache (``luts_for``) wherever the
-    sky or GI (which samples it for its miss rays) runs."""
+    sky or GI (which samples it for its miss rays) runs. ``mesh`` splits
+    the trace calls' rows over its ranks (see the module docstring); the
+    result equals the unsplit frame's."""
     if luts is None and (config.include_sky or config.needs_gi):
         luts = luts_for(scene.sun_altitude, camera.device)
     use_pallas = False if config.differentiable else None
@@ -117,7 +124,7 @@ def render_frame(scene: Scene, camera: Camera, state: RenderState, seed: int,
     tuning = config.tuning
     surf, reproj, sky, bn_first, bn_second = _stage_prelude(
         scene, camera, state.prev_camera, state.prev_surface, frame, luts, config.include_sky,
-        use_pallas,
+        use_pallas, mesh=mesh,
     )
     zeros4 = torch.zeros((camera.height, camera.width, 4), device=camera.device)
     di_diff = di_spec = gi_diff = gi_spec = zeros4
@@ -133,12 +140,12 @@ def render_frame(scene: Scene, camera: Camera, state: RenderState, seed: int,
     if config.needs_di:
         di_diff, di_spec, di_prev = _stage_di(
             scene, camera, surf, state.prev_surface, reproj, state.di_prev, seed, frame,
-            bn_first, sky, tuning, use_pallas, di_pre,
+            bn_first, sky, tuning, use_pallas, di_pre, mesh=mesh,
         )
     if config.needs_gi:
         gi_diff, gi_spec, gi_prev = _stage_gi(
             scene, camera, surf, state.prev_surface, reproj, state.gi_prev, seed, frame,
-            bn_second, luts, use_pallas, tuning, gi_pre,
+            bn_second, luts, use_pallas, tuning, gi_pre, mesh=mesh,
         )
     di_den, gi_den = state.di_diff_denoiser, state.gi_diff_denoiser
     di_rgb, gi_rgb = di_diff[..., :3], gi_diff[..., :3]
@@ -158,19 +165,20 @@ def render_frame(scene: Scene, camera: Camera, state: RenderState, seed: int,
     return channels, new_state
 
 
-def render_frame_fused(scene, camera, state, seed, config=RenderConfig(), luts=None):
+def render_frame_fused(scene, camera, state, seed, config=RenderConfig(), luts=None, mesh=None):
     """The JAX package's one-program frame. Eager PyTorch has no program
     to fuse, so this is ``render_frame``."""
-    return render_frame(scene, camera, state, seed, config, luts)
+    return render_frame(scene, camera, state, seed, config, luts, mesh)
 
 
 def _stage_prelude(scene, camera, prev_camera, prev_surface, frame, luts=None,
-                   include_sky=False, use_pallas=None):
+                   include_sky=False, use_pallas=None, mesh=None):
     """G-buffer + reprojection map + miss-pixel sky (through ``luts`` when
     given, else the analytic march; zero with the sky off) + blue noise."""
     h, w = camera.height, camera.width
     dev = camera.device
-    surf, velocity = primary_pass(scene, camera, prev_camera, use_pallas)
+    with trace_rows_sharded(mesh):
+        surf, velocity = primary_pass(scene, camera, prev_camera, use_pallas)
     reproj = build_reprojection_map(camera, surf, prev_surface, velocity)
     if include_sky:
         sun = sun_direction(scene.sun_azimuth, scene.sun_altitude, device=dev)
@@ -192,21 +200,23 @@ def _stage_history(camera, reproj, di_prev, gi_prev, prev_surface):
 
 
 def _stage_di(scene, camera, surf, prev_surface, reproj, di_prev, seed, frame, bn_first, sky,
-              tuning=DEFAULT_TUNING, use_pallas=None, prefetched=None):
+              tuning=DEFAULT_TUNING, use_pallas=None, prefetched=None, mesh=None):
     """The four DI passes. ``use_pallas`` reaches the spatial probe (False
-    keeps the tensor probe)."""
-    a = di_mod.di_sampling(scene, camera, surf, derive_seed(seed, 0), bn_first, tuning)
-    b = di_mod.di_temporal(scene, camera, surf, prev_surface, reproj, a, di_prev,
-                           derive_seed(seed, 1), tuning, prefetched)
-    c = di_mod.di_spatial(scene, camera, surf, b, derive_seed(seed, 2), frame, tuning,
-                          use_pallas)
-    return di_mod.di_resolving(scene, camera, surf, c, sky)
+    keeps the tensor probe, and so does a mesh)."""
+    with trace_rows_sharded(mesh):
+        a = di_mod.di_sampling(scene, camera, surf, derive_seed(seed, 0), bn_first, tuning)
+        b = di_mod.di_temporal(scene, camera, surf, prev_surface, reproj, a, di_prev,
+                               derive_seed(seed, 1), tuning, prefetched)
+        c = di_mod.di_spatial(scene, camera, surf, b, derive_seed(seed, 2), frame, tuning,
+                              use_pallas)
+        return di_mod.di_resolving(scene, camera, surf, c, sky)
 
 
 def _stage_gi(scene, camera, surf, prev_surface, reproj, gi_prev, seed, frame, bn_second,
-              luts, use_pallas=None, tuning=DEFAULT_TUNING, prefetched=None):
-    return gi_mod.gi_pipeline(scene, camera, surf, prev_surface, reproj, gi_prev, seed, frame,
-                              bn_second, luts, use_pallas, tuning, prefetched)
+              luts, use_pallas=None, tuning=DEFAULT_TUNING, prefetched=None, mesh=None):
+    with trace_rows_sharded(mesh):
+        return gi_mod.gi_pipeline(scene, camera, surf, prev_surface, reproj, gi_prev, seed,
+                                  frame, bn_second, luts, use_pallas, tuning, prefetched)
 
 
 def _stage_denoise(samples, surf, reproj, den_state, frame, kind, tuning=DEFAULT_TUNING):

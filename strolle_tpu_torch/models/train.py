@@ -16,6 +16,10 @@ kernel B.
     from strolle_tpu_torch.models.train import params_from_scene, train_step
     params = params_from_scene(scene)
     loss, params, grads = train_step(params, scene, camera, target, seed=7)
+
+With a device mesh (``parallel/``) each rank renders only its own rows:
+``train_step_sharded`` runs the backward locally and sums the loss and
+every gradient over the ranks in one all-reduce, the JAX package's psum.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import dataclasses
 import torch
 
 from ..camera import Camera
+from ..parallel.sharding import all_reduce_sum, mesh_block, sample_block
 from ..scene.types import Scene
 from .reference import trace_sample
 from .restir import RenderConfig, render_frame
@@ -71,16 +76,31 @@ def apply_params(scene: Scene, params: TrainableParams) -> Scene:
 def render_loss(params: TrainableParams, scene: Scene, camera: Camera, target: torch.Tensor,
                 seed, depth: int = 2, mesh=None) -> torch.Tensor:
     """L2 image loss of a 1-spp render against ``target``, through the
-    staged loop's differentiable route (``use_pallas=False``)."""
+    staged loop's differentiable route (``use_pallas=False``). With
+    ``mesh`` each rank renders only its own rows: the value is the whole
+    image's loss on every rank, its gradient this rank's share (summed
+    over the ranks by ``train_step_sharded``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "render_loss over a device mesh: the multi-device layer is a later slice of the "
-            "port (ROADMAP.md section 1, item 5)"
-        )
+        part = rows_loss(params, scene, camera, target, seed, depth, mesh_block(mesh),
+                         mesh.size())
+        (total,) = all_reduce_sum([part])
+        return part + (total - part.detach())
     img = trace_sample(apply_params(scene, params), camera, seed, depth, False,
                        use_pallas=False)
     diff = img - target
     return torch.mean(diff * diff)
+
+
+def rows_loss(params: TrainableParams, scene: Scene, camera: Camera, target: torch.Tensor,
+              seed, depth: int, block: int, n: int) -> torch.Tensor:
+    """Block ``block`` of ``n``'s share of the mean squared error (the
+    share of the rank that holds it): the sum over its real rows (pad rows
+    masked out) divided by H * W * 3."""
+    img, yy, real = sample_block(apply_params(scene, params), camera, seed, depth, False, False,
+                                 block, n)
+    diff = img - target[yy.long()]
+    sq = torch.where(real[:, None, None], diff * diff, 0.0)
+    return sq.sum() / (camera.height * camera.width * 3)
 
 
 def _value_and_grad(loss_fn, params: TrainableParams):
@@ -131,11 +151,16 @@ def restir_train_step(params: TrainableParams, scene: Scene, camera: Camera, sta
     return loss, _sgd(params, grads, lr), grads
 
 
-def train_step_sharded(mesh, params, scene, camera, target, seed, lr: float = 0.05,
-                       depth: int = 2):
-    """The JAX package's step with the pixel axis sharded over a device
-    mesh; the multi-device layer is a later slice of the port."""
-    raise NotImplementedError(
-        "train_step_sharded: the multi-device layer is a later slice of the port "
-        "(ROADMAP.md section 1, item 5)"
+def train_step_sharded(mesh, params: TrainableParams, scene: Scene, camera: Camera,
+                       target: torch.Tensor, seed, lr: float = 0.05, depth: int = 2):
+    """One SGD step with the pixel rows split over ``mesh``: each rank
+    renders and differentiates its own rows, then the loss and gradients
+    are summed over the ranks in one all-reduce. (loss, params - lr *
+    grads, grads), equal on every rank."""
+    loss, grads = _value_and_grad(
+        lambda p: rows_loss(p, scene, camera, target, seed, depth, mesh_block(mesh), mesh.size()),
+        params
     )
+    loss, *summed = all_reduce_sum([loss.reshape(1)] + [getattr(grads, f) for f in FIELDS])
+    grads = TrainableParams(*summed)
+    return loss.reshape(()), _sgd(params, grads, lr), grads

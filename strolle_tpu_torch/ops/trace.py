@@ -24,12 +24,20 @@ whose sampled base-colour alpha is below 1 is skipped by restarting the
 ray just past it, MAX_ALPHA_RESTARTS times, each restart one launch of
 the opaque closest-hit route above. ``trace_surface`` takes
 ``trace_closest`` + ``surface_at`` on such a scene, as the fused kernels
-have no alpha test. The mesh sharding context is a later slice of the
-port and raises NotImplementedError here.
+have no alpha test.
+
+Inside ``trace_rows_sharded(mesh)`` the three entry points split their
+rays' leading (pixel-row) axis over the ranks of a
+``torch.distributed`` device mesh, as the JAX package's shard_map does:
+each rank traces its own block of rows through the route above (its
+kernel) and the blocks are gathered, so every rank returns the whole
+result. The split is forward only.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -89,14 +97,53 @@ def cluster_rows(scene: Scene) -> torch.Tensor:
                              scene.geometry.positions.detach())
 
 
+#: The device mesh the trace entry points split their rays over, set by
+#: ``trace_rows_sharded`` (the JAX package's context of the same name).
+_TRACE_MESH: contextvars.ContextVar = contextvars.ContextVar("strolle_trace_mesh", default=None)
+
+
+@contextlib.contextmanager
 def trace_rows_sharded(mesh):
-    """The JAX package's context that shards ray rows over a device mesh;
-    the multi-device layer is a later slice of the port (ROADMAP.md
-    section 1, item 5)."""
-    raise NotImplementedError(
-        "trace_rows_sharded: the multi-device layer is a later slice of the port "
-        "(ROADMAP.md section 1, item 5)"
-    )
+    """While active, ``trace_surface``, ``trace_closest`` and
+    ``trace_anyhit`` split their ray rows over ``mesh`` (a
+    ``torch.distributed`` DeviceMesh that spans the process group) and
+    gather the results. ``mesh=None`` is a no-op (one device)."""
+    if mesh is None:
+        yield
+        return
+    token = _TRACE_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _TRACE_MESH.reset(token)
+
+
+def _shard_over_rows(mesh, fn, scene, *rays):
+    """``fn(scene, *rays)`` on this rank's contiguous block of the rays'
+    leading axis, with the mesh context cleared so that the nested entry
+    point takes its single-rank route; every output field gathered along
+    dim 0 over the ranks. The leading axis must divide by the mesh size
+    (as shard_map requires). Forward only: rays that require grad raise
+    here, and outputs that carry a gradient (a scene that requires one)
+    raise in the gather."""
+    from ..parallel.sharding import gather_rows, mesh_block
+
+    n = mesh.size()
+    h = rays[0].shape[0]
+    if h % n:
+        raise ValueError(f"trace_rows_sharded: {h} rows do not divide over {n} ranks")
+    if any(r.requires_grad for r in rays):
+        raise ValueError("trace_rows_sharded splits the forward pass only: its rays must not "
+                         "require grad (no sharded frame is differentiated)")
+    rows = h // n
+    i = mesh_block(mesh)
+    local = [r[i * rows:(i + 1) * rows] for r in rays]
+    token = _TRACE_MESH.set(None)
+    try:
+        out = fn(scene, *local)
+    finally:
+        _TRACE_MESH.reset(token)
+    return gather_rows(out)
 
 
 def packed_tri_rows(scene: Scene) -> torch.Tensor:
@@ -211,6 +258,9 @@ def trace_closest(scene: Scene, o: torch.Tensor, d: torch.Tensor) -> TriangleHit
     blending, a hit whose sampled alpha is below 1 is skipped: the ray
     restarts just past it, MAX_ALPHA_RESTARTS times in all, without a look
     at the host (every ray takes every step)."""
+    mesh = _TRACE_MESH.get()
+    if mesh is not None:
+        return _shard_over_rows(mesh, trace_closest, scene, o, d)
     if not scene.has_alpha:
         return _trace_closest_kernel(scene, o, d)
     zero = o[..., 0] * 0.0
@@ -257,6 +307,9 @@ def trace_anyhit(scene: Scene, o: torch.Tensor, d: torch.Tensor, t_max) -> torch
     restart loop of ``trace_closest``; on detached rays: a boolean carries
     no gradient)."""
     t_max = torch.broadcast_to(torch.as_tensor(t_max, device=o.device), o.shape[:-1])
+    mesh = _TRACE_MESH.get()
+    if mesh is not None:
+        return _shard_over_rows(mesh, trace_anyhit, scene, o, d, t_max)
     t_max = t_max.detach().to(torch.float32).contiguous()
     o = o.detach().contiguous()
     d = d.detach().contiguous()
@@ -300,6 +353,10 @@ def trace_surface(
     A scene with alpha blending takes trace_closest + surface_at too: the
     fused kernels have no alpha test. ``regularize`` clamps roughness for
     indirect bounces."""
+    mesh = _TRACE_MESH.get()
+    if mesh is not None:
+        return _shard_over_rows(
+            mesh, lambda s, oo, dd: trace_surface(s, oo, dd, regularize, use_pallas), scene, o, d)
     if use_pallas is False or scene.has_alpha or (
         scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS and scene.bvh is None
     ):

@@ -31,7 +31,7 @@ from ..ops.hit import Surface
 from ..ops.kernels import probe_kernels
 from ..ops.kernels.probe_kernels import try_seed
 from ..ops.lights import gather_light, radiance, shadow_ray_bnoise
-from ..ops.trace import trace_anyhit
+from ..ops.trace import _TRACE_MESH, trace_anyhit
 from ..scene.types import LIGHT_NONE, Scene
 from . import reservoir as rsv
 from .mis import mis_eval
@@ -223,9 +223,13 @@ def _di_probe_tensor(camera: Camera, surf: Surface, res: rsv.DiReservoirs, seed:
 
 
 def _probe_kernel_enabled(use_pallas) -> bool:
-    """The fused probe runs when ``STROLLE_PROBE_KERNEL=1`` and the caller
-    does not ask for the tensor route (``use_pallas=False``)."""
-    return os.environ.get("STROLLE_PROBE_KERNEL", "0") == "1" and use_pallas is not False
+    """The fused probe runs when ``STROLLE_PROBE_KERNEL=1``, the caller
+    does not ask for the tensor route (``use_pallas=False``) and no device
+    mesh splits the frame's trace rows (``ops.trace.trace_rows_sharded``):
+    under a mesh the JAX package takes the tensor probe, which in GI mode
+    is not bit-equal to the kernel."""
+    return (os.environ.get("STROLLE_PROBE_KERNEL", "0") == "1" and use_pallas is not False
+            and _TRACE_MESH.get() is None)
 
 
 def _draw_probe_tables(seed: int, tries: int, radii, n_var: int, margin: int, device):

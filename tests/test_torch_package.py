@@ -1,6 +1,6 @@
 """The port's package boundaries: no JAX inside it, the card by default,
-a loud refusal of the paths that later slices port (the mesh sharding
-context, the sharded training step), and big scenes without a BVH traced
+a loud refusal of what the port does not take (a scene the megakernel
+refuses, over 1024 rows for it), and big scenes without a BVH traced
 through kernels A and B as the JAX package traces them."""
 
 import ast
@@ -18,7 +18,6 @@ from strolle_tpu.ops import trace as jax_trace
 from strolle_tpu.scene.cornell import cornell_box as jax_cornell_box
 from strolle_tpu_torch import convert
 from strolle_tpu_torch.camera import make_camera, pixel_rays, screen_grid
-from strolle_tpu_torch.models import train
 from strolle_tpu_torch.models.reference import trace_sample
 from strolle_tpu_torch.models.restir import init_state
 from strolle_tpu_torch.ops.kernels import ref_kernel, trace_kernels
@@ -47,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     pkg = ROOT / "strolle_tpu_torch"
     for module in ("bvh/traverse.py", "ops/kernels/cluster_kernels.py",
                    "ops/kernels/bvh_kernels.py", "ops/trace.py",
-                   "ops/kernels/probe_kernels.py", "models/heatmap.py"):
+                   "ops/kernels/probe_kernels.py", "models/heatmap.py",
+                   "parallel/sharding.py", "parallel/frame_sharding.py",
+                   "parallel/distributed.py", "entry.py", "examples/_common.py"):
         assert pkg / module in files, module
     for path in files:
         for mod in _imported_modules(path):
@@ -73,20 +74,11 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
 
 
 def test_unported_paths_raise():
-    from strolle_tpu_torch.ops import trace as trace_mod
-
     scene = cornell_box(device="cpu")
     cam = cornell_camera(4, 4, device="cpu")
     with pytest.raises(ValueError, match="megakernel"):
         trace_sample(scene, cam, 1, depth=1, include_sky=True, use_megakernel=True)
     o = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        trace_mod.trace_rows_sharded(None)
-    params = train.params_from_scene(scene)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        train.train_step_sharded(None, params, scene, cam, torch.zeros(4, 4, 3), 1)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        train.render_loss(params, scene, cam, torch.zeros(4, 4, 3), 1, mesh=object())
     with pytest.raises(NotImplementedError, match="1024"):
         ref_kernel.trace_sample_megakernel(
             torch.zeros(1032, 24), torch.zeros(1, 12), torch.zeros(1, 13), 1,
