@@ -130,16 +130,22 @@ Run from the root of the repository:  python3 chip_smoke.py
    refit) and per engine frame, and one engine frame under the profiler.
    Then (phase 5j) the multi-device layer at 800x608, at world size 1
    under NCCL and counted: the split Cornell sample (kernel C) bit-equal
-   to trace_sample; one GI cycle of the dungeon with the sky split with
-   STROLLE_PROBE_KERNEL=1 (kernels 5 and 6, kernel 7 never), every
-   channel and state leaf bit-equal to render_frame's; train_step_sharded
-   (A and B) against train_step; dryrun_multichip(1). Then two gloo ranks
-   in subprocesses sharing the card, each on its 304 rows, counted: the
-   sample, six Cornell frames and a training step, held against the
-   unsplit ones (images to tests/test_sharding.py's criteria; gradients
-   at rtol 1e-4, atol 1e-6 against the same row blocks summed in one
-   process, and within 1e-3 of each field's largest component against
-   train_step), with ms per call and the collectives' time. Then (phase
+   to trace_sample; one GI cycle of the dungeon with the sky on the
+   row-split state with STROLLE_PROBE_KERNEL=1 (kernels 5 and 6, kernel
+   7 never), every channel and state leaf bit-equal to render_frame's
+   (switch off) with the same launches, and one frame's dispatched
+   device ops equal to the unsplit frame's; train_step_sharded (A and B)
+   against train_step; dryrun_multichip(1). Then two gloo ranks in
+   subprocesses sharing the card, each holding and computing its 304
+   rows, counted: the sample (to tests/test_sharding.py's criteria), one
+   GI cycle of Cornell (kernels 4 and B on the rank's rows) and one of
+   the dungeon with the sky, whose gathered channels and state are
+   bit-equal to the unsplit cycles' (SHA-256 of every tensor), and a
+   training step (gradients at rtol 1e-4, atol 1e-6 against the
+   same row blocks summed in one process, and within 1e-3 of each
+   field's largest component against train_step); per rank ms per call
+   and per frame, one profiled frame's device busy time and ops, its
+   dispatched ops, and the gathers' calls, bytes and ms per frame. Then (phase
    5k) each example's main() at its default size, counted, its images
    written and finite (the viewer: 2 frames and one GET of its frame),
    and stress_large's kernels 5 and 6 (262,144 triangles, 1,024
@@ -277,8 +283,7 @@ ROUTE_BYTES = {"di": (21, 17), "gi": (69, 21)}
 #: take on the card: the kernel's one launch, with room to spare.
 FUSED_PASS_MAX_OPS = 5
 #: Realtime frames under the profiler in phase 6's frame profiles (after
-#: one warm-up frame): each costs ~13 s of script time for the profiler's
-#: ~30,000 device records (on an H100 host, 700 W).
+#: one warm-up frame), each ~30,000 device records.
 PROFILE_RT_FRAMES = 2
 
 
@@ -322,7 +327,11 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
     that took the most device time. One call before them is the
     profiler's warm-up step, whose events are dropped (the device's
     tracing starts there); the recorded step's own marker is not
-    counted. None when the trace holds no device events."""
+    counted. None when the trace holds no device events. The device
+    records are read from the trace as it was collected (the profiler's
+    ``kineto_results``): building ``prof.events()`` from them, with every
+    host op linked to its children, took most of the ~13 s a profiled
+    realtime frame cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -341,9 +350,10 @@ def profile_frames(fn, frames: int = 5) -> dict | None:
         prof.step()
     by_name: dict[str, float] = {}
     n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and not e.name().startswith("ProfilerStep")
+                and not getattr(e, "is_hidden_event", lambda: False)()):
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
             n_kernels += 1
     if not by_name:
         return None
@@ -1784,9 +1794,9 @@ def capture_spatial(calls: dict):
     real = {"di": di.di_spatial, "gi": gi.gi_spatial}
 
     def recorder(kind):
-        def fn(scene, camera, surf, res, seed, frame, tuning, use_pallas=None):
+        def fn(scene, camera, surf, res, seed, frame, tuning, *rest):
             calls.setdefault(kind, []).append((camera, surf, res, seed, frame, tuning))
-            return real[kind](scene, camera, surf, res, seed, frame, tuning, use_pallas)
+            return real[kind](scene, camera, surf, res, seed, frame, tuning, *rest)
         return fn
 
     di.di_spatial, gi.gi_spatial = recorder("di"), recorder("gi")
@@ -3036,12 +3046,16 @@ def drive_engine(dg, dcam, device, err: dict) -> dict:
 
 #: Phase 5j, the multi-device layer: the two-rank check's ranks (gloo
 #: subprocesses on the one card, each killed after MULTI_CHILD_TIMEOUT s),
-#: the seeds of the split Cornell frames and the dungeon's split GI cycle.
+#: the seeds of the Cornell and the dungeon split GI cycles.
 MULTI_RANKS = 2
 MULTI_CHILD_TIMEOUT = 300
 MULTI_FRAME_SEED = 1000
 MULTI_DG_SEED = 9000
 MULTI_FRAMES = 6
+#: The two-rank Cornell frame of the earlier split, where each rank held
+#: the whole state and split only its trace calls (NVIDIA H100 80GB HBM3,
+#: 700.00 W): ms a frame a rank, printed beside the row-split frame's.
+WHOLE_STATE_TWO_RANK_CORNELL_MS = (620.7, 665.7)
 #: Phase 5k, the examples: frames (and fit_materials' steps) at each
 #: example's default size; stress_large's seeded subset of image rows on
 #: which kernels 5 and 6 are held against their plain versions.
@@ -3118,47 +3132,136 @@ def counted(fn, launches: dict, name: str):
     return out, start.elapsed_time(end)
 
 
+def digests(tree) -> list:
+    """SHA-256 of every tensor of ``tree``, in order: equal digests are
+    equal bytes."""
+    import hashlib
+
+    return [hashlib.sha256(x.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+            .hexdigest() for x in tree_leaves(tree)]
+
+
+def split_frame_digests(channels: list, state) -> dict:
+    """The digests the two-rank check compares: every channel of every
+    frame, then every [H, ...] leaf of the state after the cycle."""
+    from strolle_tpu_torch.parallel.frame_sharding import ROW_FIELDS
+
+    return {"frames": [digests(ch) for ch in channels],
+            "state": digests([getattr(state, f) for f in ROW_FIELDS])}
+
+
+def gather_meter(sharding, log: list):
+    """``sharding.gather_rows`` replaced by a timed, counted one: each call
+    appends (bytes this rank sends, bytes it receives, ms between two
+    device synchronisations) to ``log``. Returns the restoring call."""
+    import torch.distributed as dist
+
+    plain = sharding.gather_rows
+
+    def gather(tree):
+        sent = sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(tree)
+        torch.cuda.synchronize()
+        log.append((sent, sent * (dist.get_world_size() - 1), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    sharding.gather_rows = gather
+    return lambda: setattr(sharding, "gather_rows", plain)
+
+
 def rank_child(argv: list) -> int:
     """One rank of phase 5j's two-rank check (``chip_smoke.py --rank-child
     RANK WORLD STORE OUT``): a gloo rank on the one card, which renders
-    the Cornell sample, MULTI_FRAMES realtime frames and one training step
-    with the rows split over the ranks, counted, and writes its results
-    (rank 0 also the images and gradients) to OUT."""
+    the Cornell sample, one GI cycle of Cornell (kernels 4 and B) and one
+    of the dungeon with the sky (kernels 5 and 6), each on its own rows
+    of the state (``render_frame_sharded``), and one training step with
+    the rows split over the ranks, counted; times the sample, the step
+    and a second GI cycle of each scene, meters the dungeon's gathers of
+    a third, and profiles one dungeon frame; and writes its results
+    (rank 0 also the sample, the digests of each cycle's gathered
+    channels and state, and the gradients) to OUT."""
     import torch.distributed as dist
 
     rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
+    from strolle_tpu_torch.models.restir import RenderConfig
     from strolle_tpu_torch.models.train import FIELDS, params_from_scene, train_step_sharded
     from strolle_tpu_torch.ops.kernels import cuda_lib
     from strolle_tpu_torch.parallel import frame_sharding as fs
     from strolle_tpu_torch.parallel import sharding
     from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+    from strolle_tpu_torch.scene.demo import dungeon_camera
 
     cuda_lib.library()
     mesh = sharding.make_mesh(world)
     scene, cam = cornell_box(), cornell_camera(WIDTH, HEIGHT)
-    launches, ms = {}, {}
+    launches, ms, info = {}, {}, {}
     img, _ = counted(
         lambda: sharding.render_sample_sharded(mesh, scene, cam, SEED, depth=DEPTH), launches,
         "sample")
     ms["sample"] = time_ms(lambda: sharding.render_sample_sharded(mesh, scene, cam, SEED,
                                                                   depth=DEPTH), 0, 3)
-    state = fs.init_state_sharded(mesh, cam)
+
+    # Cornell's GI cycle on this rank's rows
     rep = fs.replicate_scene(mesh, scene)
+    cstate = fs.init_state_sharded(mesh, cam)
 
-    def frames():
-        nonlocal state
-        imgs = []
+    def cornell_cycle():
+        nonlocal cstate
+        out = []
         for f in range(MULTI_FRAMES):
-            ch, state = fs.render_frame_sharded(mesh, rep, cam, state, MULTI_FRAME_SEED + f)
-            imgs.append(ch["image"])
-        return imgs
+            ch, cstate = fs.render_frame_sharded(mesh, rep, cam, cstate, MULTI_FRAME_SEED + f)
+            out.append(ch)
+        return out
 
-    imgs, _ = counted(frames, launches, "frames")
-    _, t = counted(frames, {}, "x")  # the next GI cycle, warm
+    blocks, _ = counted(cornell_cycle, launches, "cornell_frames")
+    info["cornell_rows"] = sorted({x.shape[0] for ch in blocks for x in ch.values()} | {
+        x.shape[0] for x in tree_leaves([getattr(cstate, f) for f in fs.ROW_FIELDS])})
+    got_cornell = split_frame_digests([fs.gather_frame(ch) for ch in blocks],
+                                      fs.gather_frame(cstate))
+    del blocks
+    _, t = counted(cornell_cycle, {}, "x")  # the next GI cycle, warm
+    ms["cornell_frame"] = t / MULTI_FRAMES
+
+    # the dungeon's GI cycle on this rank's rows
+    dg, dluts = dungeon_scene(cam.device)
+    dcam = dungeon_camera(WIDTH, HEIGHT)
+    dcfg = RenderConfig(include_sky=True)
+    state = fs.init_state_sharded(mesh, dcam)
+    info["state_rows"] = sorted({x.shape[0] for x in tree_leaves(
+        [getattr(state, f) for f in fs.ROW_FIELDS])})
+
+    def frame():
+        nonlocal state
+        ch, state = fs.render_frame_sharded(mesh, dg, dcam, state, MULTI_DG_SEED + state.frame,
+                                            dcfg, dluts)
+        return ch
+
+    def cycle():
+        return [frame() for _ in range(MULTI_FRAMES)]
+
+    blocks, _ = counted(cycle, launches, "frames")
+    info["channel_rows"] = sorted({x.shape[0] for ch in blocks for x in ch.values()})
+    whole = [fs.gather_frame(ch) for ch in blocks]
+    got = split_frame_digests(whole, fs.gather_frame(state))
+    del blocks, whole
+    _, t = counted(cycle, {}, "x")  # the next GI cycle, warm
     ms["frame"] = t / MULTI_FRAMES
+    log = []
+    restore = gather_meter(sharding, log)
+    try:
+        cycle()
+    finally:
+        restore()
+    sent, received, g_ms = (sum(c) / MULTI_FRAMES for c in zip(*log))
+    info["gathers_per_frame"] = {"calls": len(log) / MULTI_FRAMES, "bytes_sent": sent,
+                                 "bytes_received": received, "ms": g_ms}
+    info["profile"] = profile_frames(frame, frames=1)
+    info["dispatched_ops_per_frame"], _ = dispatched_ops(frame)
     target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=cam.device)
 
     def step():
@@ -3172,9 +3275,9 @@ def rank_child(argv: list) -> int:
     ms["gather_sample_rows"] = time_ms(lambda: sharding.gather_rows(block), warmup=1, iters=5)
     g = [getattr(grads, f) for f in FIELDS]
     ms["all_reduce_grads"] = time_ms(lambda: sharding.all_reduce_sum(g), warmup=1, iters=5)
-    res = {"rank": rank, "launches": launches, "ms": ms, "rows": block.shape[0]}
+    res = {"rank": rank, "launches": launches, "ms": ms, "rows": block.shape[0], "info": info}
     if rank == 0:
-        res.update(sample=img.cpu(), frames=[x.cpu() for x in imgs], loss=loss.cpu(),
+        res.update(sample=img.cpu(), digests=got, cornell_digests=got_cornell, loss=loss.cpu(),
                    grads=grads)
     torch.save(res, f"{out}.rank{rank}")
     dist.barrier()
@@ -3223,13 +3326,18 @@ def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
     render_frame_sharded with STROLLE_PROBE_KERNEL=1 (kernels 5 and 6 as
     the schedule says, kernel 7 never: a mesh takes the tensor probe),
     every channel and state leaf bit-equal to render_frame's on the same
-    seeds with the switch off; train_step_sharded (kernels A and B)
-    against train_step; dryrun_multichip(1). Then MULTI_RANKS gloo ranks
-    in subprocesses on the one card, each on its own rows: the sample,
-    MULTI_FRAMES Cornell frames and one training step, held against the
-    unsplit ones (images to tests/test_sharding.py's criteria, gradients
-    at rtol 1e-4, atol 1e-6), each rank's counts printed. Returns the
-    launches of the world-size-1 runs and the numbers."""
+    seeds with the switch off, with the same launches, and one more
+    frame's dispatched device ops equal to the unsplit frame's (every
+    gather the identity); train_step_sharded (kernels A and B) against
+    train_step; dryrun_multichip(1). Then MULTI_RANKS gloo ranks in
+    subprocesses on the one card, each holding and computing its own
+    rows: the sample, one GI cycle of Cornell and one of the dungeon and
+    one training step, held against the unsplit ones (the sample to
+    tests/test_sharding.py's criteria; each cycle's gathered channels and
+    state bit-equal to an unsplit cycle, the dungeon's that of the
+    world-size-1 check; gradients at rtol 1e-4, atol 1e-6), each rank's
+    counts, times, profile and gathers printed.
+    Returns the launches of the world-size-1 runs and the numbers."""
     import torch.distributed as dist
 
     from strolle_tpu_torch.entry import dryrun_multichip
@@ -3262,7 +3370,8 @@ def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
     split = fs.init_state_sharded(mesh, dcam)
     state = init_state(dcam, device=dcam.device)
     ms_split = ms_unsplit = 0.0
-    frame_launches = collections.Counter()
+    frame_launches, unsplit_launches = collections.Counter(), collections.Counter()
+    unsplit_frames = []
     for f in range(MULTI_FRAMES):
         with probe_switch(True):
             (ch_m, split), t = counted(
@@ -3271,17 +3380,33 @@ def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
         frame_launches.update(launches.pop("frame"))
         ms_split += t
         (ch, state), t = counted(
-            lambda: render_frame(dg, dcam, state, MULTI_DG_SEED + f, dcfg, dluts), {}, "x")
+            lambda: render_frame(dg, dcam, state, MULTI_DG_SEED + f, dcfg, dluts), launches, "x")
+        unsplit_launches.update(launches.pop("x"))
         ms_unsplit += t
         for k in ch:
             check(torch.equal(ch[k], ch_m[k]), f"split dungeon frame {f}: {k} differs")
+        unsplit_frames.append(digests(ch))
     for a, b in zip(tree_leaves(state), tree_leaves(split), strict=True):
         check(torch.equal(a, b), "split dungeon frames: a state leaf differs")
+    want = split_frame_digests([], state)
+    want["frames"] = unsplit_frames
     launches["dungeon_frames"] = dict(frame_launches)
     check_launches(frame_launches, realtime_launches(MULTI_FRAMES, big=STRATEGY_KERNELS["stream"]),
                    "split dungeon frames (STROLLE_PROBE_KERNEL=1)")
+    check(frame_launches == unsplit_launches,
+          f"split dungeon frames launch {dict(frame_launches)}, unsplit {dict(unsplit_launches)}")
     ms["dungeon_frame_split"] = ms_split / MULTI_FRAMES
     ms["dungeon_frame_unsplit"] = ms_unsplit / MULTI_FRAMES
+    # one more frame each, from the same state: at world size 1 every gather
+    # is the identity, so the split frame dispatches the unsplit frame's ops
+    info["world1_dispatched_ops"] = {
+        "split": dispatched_ops(lambda: fs.render_frame_sharded(
+            mesh, rep, dcam, split, MULTI_DG_SEED + MULTI_FRAMES, dcfg, dluts))[0],
+        "unsplit": dispatched_ops(lambda: render_frame(
+            dg, dcam, state, MULTI_DG_SEED + MULTI_FRAMES, dcfg, dluts))[0]}
+    check(info["world1_dispatched_ops"]["split"] == info["world1_dispatched_ops"]["unsplit"],
+          f"world size 1: the split frame's ops differ: {info['world1_dispatched_ops']}")
+    del split, state, ch, ch_m
 
     # (c) the training step
     target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=cam.device)
@@ -3308,13 +3433,18 @@ def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
     # (d) the dry run
     (_, ms["dryrun"]) = counted(lambda: dryrun_multichip(1), launches, "dryrun")
 
-    # (e) the unsplit Cornell frames the two ranks are held to, then the ranks
-    state = init_state(cam, device=cam.device)
-    frames = []
+    # (e) the unsplit Cornell cycle, then the ranks, each on its own rows:
+    # their Cornell cycle is held to this one, their dungeon cycle to (b)'s
+    cstate = init_state(cam, device=cam.device)
+    cornell_frames = []
     for f in range(MULTI_FRAMES):
-        ch, state = render_frame(scene, cam, state, MULTI_FRAME_SEED + f)
-        frames.append(ch["image"])
-    ms["frame_unsplit"] = time_ms(lambda: render_frame(scene, cam, state, 5000), 1, 3)
+        ch, cstate = render_frame(scene, cam, cstate, MULTI_FRAME_SEED + f)
+        cornell_frames.append(digests(ch))
+    want_cornell = split_frame_digests([], cstate)
+    want_cornell["frames"] = cornell_frames
+    ms["cornell_frame_unsplit"] = time_ms(
+        lambda: render_frame(scene, cam, cstate, MULTI_FRAME_SEED + MULTI_FRAMES), 1, 3)
+    del cstate, ch
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3322,10 +3452,22 @@ def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
         info["two_rank_wall_s"] = time.perf_counter() - t0
     r0 = ranks[0]
     info["two_rank_sample"] = images_match(img.cpu(), r0["sample"])
-    info["two_rank_frames"] = [images_match(a.cpu(), b) for a, b in zip(frames, r0["frames"])]
-    for what, m in [("sample", info["two_rank_sample"])] + [
-            (f"frame {f}", m) for f, m in enumerate(info["two_rank_frames"])]:
-        check(m["ok"], f"two ranks: the {what} is off the unsplit one: {m}")
+    check(info["two_rank_sample"]["ok"],
+          f"two ranks: the sample is off the unsplit one: {info['two_rank_sample']}")
+    for f, (a, b) in enumerate(zip(want["frames"], r0["digests"]["frames"], strict=True)):
+        check(a == b, f"two ranks: dungeon frame {f} differs from the unsplit frame "
+              f"(channels equal: {[x == y for x, y in zip(a, b)]})")
+    check(want["state"] == r0["digests"]["state"],
+          "two ranks: the dungeon state after the cycle differs from the unsplit one")
+    info["two_rank_dungeon_bit_equal"] = True
+    for f, (a, b) in enumerate(zip(want_cornell["frames"], r0["cornell_digests"]["frames"],
+                                   strict=True)):
+        check(a == b, f"two ranks: Cornell frame {f} differs from the unsplit frame "
+              f"(channels equal: {[x == y for x, y in zip(a, b)]})")
+    check(want_cornell["state"] == r0["cornell_digests"]["state"],
+          "two ranks: the Cornell state after the cycle differs from the unsplit one")
+    info["two_rank_cornell_bit_equal"] = True
+    rows = HEIGHT // MULTI_RANKS
     # The ranks' gradients against the same blocks differentiated and summed
     # in one process (the all-reduce's float32 order): rtol 1e-4, atol 1e-6
     # elementwise. Against train_step's one sum over every pixel: within
@@ -3341,15 +3483,31 @@ def drive_multidevice(scene, cam, img, dg, dcam, dluts) -> dict:
     for f, d in info["two_rank_grads_vs_train_step"].items():
         check(d["max_abs_diff"] <= 1e-3 * d["largest"] + 1e-6,
               f"two-rank step: {f} gradients off train_step's: {d}")
-    want_frames = realtime_launches(MULTI_FRAMES)
+    want_frames = realtime_launches(MULTI_FRAMES, big=STRATEGY_KERNELS["stream"])
+    card = card_line()
     for r in ranks:
         print(f"two ranks: rank {r['rank']} ({r['rows']} rows) launches {r['launches']}, ms "
               f"{r['ms']}", flush=True)
+        print(f"two ranks: rank {r['rank']} row-split dungeon frame: "
+              f"{json.dumps({'card': card, 'ms_per_frame': r['ms']['frame'], **r['info']})}",
+              flush=True)
+        print(f"two ranks: rank {r['rank']} row-split Cornell frame: {r['ms']['cornell_frame']} "
+              f"ms ({card}; unsplit {ms['cornell_frame_unsplit']} ms); the whole-state split's "
+              f"Cornell frame: {WHOLE_STATE_TWO_RANK_CORNELL_MS[0]}-"
+              f"{WHOLE_STATE_TWO_RANK_CORNELL_MS[1]} ms a rank", flush=True)
+        check(r["info"]["state_rows"] == [rows] and r["info"]["channel_rows"] == [rows],
+              f"rank {r['rank']}: state rows {r['info']['state_rows']}, channel rows "
+              f"{r['info']['channel_rows']}, not {rows}")
+        check(r["info"]["cornell_rows"] == [rows],
+              f"rank {r['rank']}: Cornell rows {r['info']['cornell_rows']}, not {rows}")
+        check_launches(r["launches"]["cornell_frames"], realtime_launches(MULTI_FRAMES),
+                       "rank Cornell frames")
         check_launches(r["launches"]["sample"], {"trace_sample_megakernel": 1}, "rank sample")
-        check_launches(r["launches"]["frames"], want_frames, "rank frames")
+        check_launches(r["launches"]["frames"], want_frames, "rank dungeon frames")
         check_launches(r["launches"]["train"], {"trace_closest_brute": n,
                                                 "trace_anyhit_brute": n}, "rank step")
     info["two_rank_ms"] = [r["ms"] for r in ranks]
+    info["two_rank_info"] = [r["info"] for r in ranks]
     info["two_rank_launches"] = [r["launches"] for r in ranks]
     info["ms"] = ms
     info["launches"] = launches
@@ -3478,10 +3636,21 @@ def drive_examples(device) -> dict:
 
 
 T_START = time.perf_counter()
+#: (phase, its start in seconds since T_START), in order.
+PHASES: list = []
 
 
 def phase(name: str) -> None:
-    print(f"[{time.perf_counter() - T_START:.1f} s] phase {name}", flush=True)
+    PHASES.append((name, time.perf_counter() - T_START))
+    print(f"[{PHASES[-1][1]:.1f} s] phase {name}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds: from its start to the next one's, the last
+    to now (phase 6's dungeon turns count within phase 6)."""
+    starts = [(n, t) for n, t in PHASES if "turn" not in n]
+    ends = [t for _, t in starts[1:]] + [time.perf_counter() - T_START]
+    return {n: e - t for (n, t), e in zip(starts, ends)}
 
 
 def main() -> int:
@@ -4106,6 +4275,7 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']}: never launched on its main path")
         check(all(math.isfinite(k[x]) for x in ("ms", "plain_ms", "bound_ms")),
               f"{k['name']}: non-finite timing")
+    print(f"phase seconds: {json.dumps(phase_seconds())}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

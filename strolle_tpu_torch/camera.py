@@ -127,9 +127,11 @@ def world_to_screen_xy(camera: Camera, pos: torch.Tensor):
     return sx, sy
 
 
-def screen_xy(camera: Camera):
-    """Integer pixel coordinates as two [H, W] int32 planes (x, y)."""
-    g = screen_grid(camera)
+def screen_xy(camera: Camera, rows=None):
+    """Integer pixel coordinates as two [H, W] int32 planes (x, y); of
+    the block's rows only where ``rows`` (a ``parallel.rows.RowBlock``)
+    is given."""
+    g = screen_grid(camera, rows)
     return g[..., 0], g[..., 1]
 
 
@@ -149,11 +151,14 @@ def contain(camera: Camera, pos_xy: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
-def screen_grid(camera: Camera) -> torch.Tensor:
-    """Integer pixel coordinates [H, W, 2] (x, y order), int32."""
+def screen_grid(camera: Camera, rows=None) -> torch.Tensor:
+    """Integer pixel coordinates [H, W, 2] (x, y order), int32; with
+    ``rows`` (a ``parallel.rows.RowBlock``) the block's [rows, W, 2],
+    each at its global row."""
     dev = camera.device
+    y0, n = (0, camera.height) if rows is None else (rows.y0, rows.rows)
     ys, xs = torch.meshgrid(
-        torch.arange(camera.height, dtype=torch.int32, device=dev),
+        torch.arange(y0, y0 + n, dtype=torch.int32, device=dev),
         torch.arange(camera.width, dtype=torch.int32, device=dev),
         indexing="ij",
     )

@@ -15,8 +15,13 @@ The JAX package's deviations from the reference are reproduced: the
 jitter moves each sampled field once per pass (each tap reads the
 jitter at its own pixel), and the luma-sigma ramp saturates at var = 1.
 Fixed-offset taps are clamped-index gathers here (the JAX package's
-edge pad + slice). The à-trous iteration carries the JAX package's
-custom VJP (``_WaveletCore``): its backward pass freezes the
+edge pad + slice). With ``rows`` (a ``parallel.rows.RowBlock``) the
+per-pixel inputs and outputs are a row block's: each cross-pixel read
+(the bilinear history, the 5x5 variance taps, each à-trous pass's
+jittered 3x3 taps) first gathers the whole screen of the arrays it taps,
+then taps them at global coordinates, clamped and masked at the image's
+edge. That split is forward only. The à-trous iteration carries the JAX
+package's custom VJP (``_WaveletCore``): its backward pass freezes the
 edge-stopping weights and pushes the colour cotangent through the exact
 adjoint of the remaining linear filter.
 """
@@ -29,6 +34,7 @@ import torch
 
 from ..ops import bluenoise, math as vm
 from ..ops.hit import Surface
+from ..parallel.rows import span, whole
 from ..restir.primary import Reprojection, bilinear_reproject
 
 HISTORY_CLAMP = 16.0
@@ -69,30 +75,34 @@ def _sample_weight(center_luma, center_depth, center_normal, sample_luma, sample
     return torch.exp(-luma_w) * depth_w * normal_w
 
 
-def _axis(n: int, d: int, device):
-    """Indices i + d clamped to [0, n) and their in-bounds mask."""
-    i = torch.arange(n, device=device) + d
+def _axis(n: int, d: int, device, start: int = 0, count: int | None = None):
+    """Indices i + d of the ``count`` indices from ``start`` (all ``n`` by
+    default), clamped to [0, n), and their in-bounds mask."""
+    i = torch.arange(n if count is None else count, device=device) + (start + d)
     return torch.clamp(i, 0, n - 1), (i >= 0) & (i < n)
 
 
-def _shift(arr, dy: int, dx: int):
+def _shift(arr, dy: int, dx: int, rows=None):
     """shifted[y, x] = arr[clamp(y + dy), clamp(x + dx)] and the
-    in-bounds mask."""
+    in-bounds mask, over ``arr``'s rows, or over the rows of ``rows`` (a
+    ``parallel.rows.RowBlock``) where ``arr`` covers the whole screen."""
     h, w = arr.shape[0], arr.shape[1]
-    yi, vy = _axis(h, dy, arr.device)
+    y0, n = span(rows, h)
+    yi, vy = _axis(h, dy, arr.device, y0, n)
     xi, vx = _axis(w, dx, arr.device)
     return arr[yi][:, xi], vy[:, None] & vx[None, :]
 
 
 def temporal_reproject(samples, surf: Surface, reproj: Reprojection, state: DenoiserState,
-                       history_clamp: float = HISTORY_CLAMP, prev_fetched=None):
+                       history_clamp: float = HISTORY_CLAMP, prev_fetched=None, rows=None):
     """Returns (color [H, W, 3], moments [H, W, 3])."""
     sky = ~surf.is_some
     sample_rgb = samples[..., :3]
     sample_luma = vm.luma(sample_rgb)
     prev = prev_fetched
     if prev is None:
-        prev = bilinear_reproject(reproj, torch.cat([state.prev_color, state.prev_moments], -1))
+        prev = bilinear_reproject(
+            reproj, whole(rows, torch.cat([state.prev_color, state.prev_moments], -1)))
     prev_color, prev_moments = prev[..., :3], prev[..., 3:]
 
     use_hist = reproj.is_some & (samples[..., 3] > 0.0) & ~sky
@@ -111,21 +121,26 @@ def temporal_reproject(samples, surf: Surface, reproj: Reprojection, state: Deno
 
 
 def estimate_variance(color, moments, surf: Surface,
-                      min_history: float = VARIANCE_MIN_HISTORY):
+                      min_history: float = VARIANCE_MIN_HISTORY, rows=None, taps=None):
     """Per-pixel variance [H, W]: temporal where history suffices, else
-    the 5x5 weighted spatial estimate x4; 0 on sky."""
+    the 5x5 weighted spatial estimate x4; 0 on sky. ``taps``: the (luma,
+    depth, normal, sky) planes the 5x5 taps read, over the whole screen
+    where the inputs are the block of ``rows``; by default the inputs'
+    own."""
     sky = ~surf.is_some
     luma = vm.luma(color)
+    t_luma, t_depth, t_normal, t_sky = (luma, surf.depth, surf.normal, sky) if taps is None \
+        else taps
     var_temporal = moments[..., 2] - vm.sqr(moments[..., 1])
     sum_l = torch.zeros_like(luma)
     sum_l2 = torch.zeros_like(luma)
     sum_w = torch.zeros_like(luma)
     for dy in range(-2, 3):
         for dx in range(-2, 3):
-            s_luma, valid = _shift(luma, dy, dx)
-            s_depth, _ = _shift(surf.depth, dy, dx)
-            s_normal, _ = _shift(surf.normal, dy, dx)
-            s_sky, _ = _shift(sky, dy, dx)
+            s_luma, valid = _shift(t_luma, dy, dx, rows)
+            s_depth, _ = _shift(t_depth, dy, dx, rows)
+            s_normal, _ = _shift(t_normal, dy, dx, rows)
+            s_sky, _ = _shift(t_sky, dy, dx, rows)
             wgt = _sample_weight(luma, surf.depth, surf.normal, s_luma, s_depth, s_normal,
                                  1.0, 0.2)
             wgt = torch.where(valid & ~s_sky, wgt, 0.0)
@@ -156,13 +171,15 @@ def _jitter_coords(jy, jx):
 
 
 def _wavelet_impl(stride: int, strength: float, sigma_ab, c_lin, c_w, var, depth, normal, skyf,
-                  jitter):
+                  jitter, rows=None, taps=None):
     """One à-trous iteration: 3x3 taps at ``stride`` over the jittered
     fields, edge-stopped; sky pixels pass through. ``c_lin`` is the colour
     the filter is applied to, ``c_w`` the colour its edge-stopping weights
     are computed from: the same tensor in the forward pass, while the
     backward pass applies the filter to the cotangent with ``c_w``
-    frozen."""
+    frozen. Under a row split (forward only) the inputs are the block of
+    ``rows``, ``taps`` the tapped fields (c_lin, var, depth, normal, skyf)
+    over the whole screen and ``jitter`` the whole screen's."""
     sky = skyf > 0.5
     a, b = sigma_ab
     # the reference's ramp extrapolates above var = 1; saturated here as
@@ -176,6 +193,8 @@ def _wavelet_impl(stride: int, strength: float, sigma_ab, c_lin, c_w, var, depth
     sum_c = c_lin
     sum_v = var
     fields = (c_lin, var, depth, normal, skyf) + (() if same else (c_w,))
+    if taps is not None:
+        fields = taps
     if jitter is not None:
         yq, xq = _jitter_coords(*jitter)
         fields = tuple(f[yq, xq] for f in fields)
@@ -185,12 +204,12 @@ def _wavelet_impl(stride: int, strength: float, sigma_ab, c_lin, c_w, var, depth
         for ox in (-1, 0, 1):
             if oy == 0 and ox == 0:
                 continue
-            s_lin, inb = _shift(j_lin, oy * stride, ox * stride)
-            s_w = s_lin if same else _shift(j_w, oy * stride, ox * stride)[0]
-            s_var, _ = _shift(j_var, oy * stride, ox * stride)
-            s_depth, _ = _shift(j_depth, oy * stride, ox * stride)
-            s_normal, _ = _shift(j_normal, oy * stride, ox * stride)
-            s_skyf, _ = _shift(j_skyf, oy * stride, ox * stride)
+            s_lin, inb = _shift(j_lin, oy * stride, ox * stride, rows)
+            s_w = s_lin if same else _shift(j_w, oy * stride, ox * stride, rows)[0]
+            s_var, _ = _shift(j_var, oy * stride, ox * stride, rows)
+            s_depth, _ = _shift(j_depth, oy * stride, ox * stride, rows)
+            s_normal, _ = _shift(j_normal, oy * stride, ox * stride, rows)
+            s_skyf, _ = _shift(j_skyf, oy * stride, ox * stride, rows)
             wgt = _sample_weight(center_luma, depth, normal, vm.luma(s_w), s_depth, s_normal,
                                  luma_sigma, depth_sigma)
             wgt = torch.where(inb & (s_skyf < 0.5) & (wgt > 0.0), wgt, 0.0)
@@ -211,11 +230,12 @@ class _WaveletCore(torch.autograd.Function):
     zero cotangent, and the variance output passes none back."""
 
     @staticmethod
-    def forward(ctx, color, var, depth, normal, skyf, stride, strength, sigma_ab, jitter):
+    def forward(ctx, color, var, depth, normal, skyf, stride, strength, sigma_ab, jitter, rows,
+                taps):
         ctx.save_for_backward(color, var, depth, normal, skyf)
         ctx.statics = (stride, strength, sigma_ab, jitter)
         return _wavelet_impl(stride, strength, sigma_ab, color, color, var, depth, normal, skyf,
-                             jitter)
+                             jitter, rows, taps)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -228,25 +248,41 @@ class _WaveletCore(torch.autograd.Function):
             out_c, _ = _wavelet_impl(stride, strength, sigma_ab, c, color, var, depth, normal,
                                      skyf, jitter)
             (g_color,) = torch.autograd.grad(out_c, c, g_c)
-        return g_color, None, None, None, None, None, None, None, None
+        return g_color, None, None, None, None, None, None, None, None, None, None
 
 
-def _wavelet(stride: int, strength: float, sigma_ab, c, var, depth, normal, skyf, jitter):
+def _wavelet(stride: int, strength: float, sigma_ab, c, var, depth, normal, skyf, jitter,
+             rows=None, taps=None):
     """One à-trous iteration (``_wavelet_impl``) with the frozen-weight
-    adjoint as its gradient."""
-    return _WaveletCore.apply(c, var, depth, normal, skyf, stride, strength, sigma_ab, jitter)
+    adjoint as its gradient; under a row split (``rows``, ``taps``)
+    forward only."""
+    return _WaveletCore.apply(c, var, depth, normal, skyf, stride, strength, sigma_ab, jitter,
+                              rows, taps)
 
 
 def denoise_channel(samples, surf: Surface, reproj: Reprojection, state: DenoiserState,
-                    frame: int, kind: str = "di", tuning=None, prev_fetched=None):
-    """The SVGF chain for one channel. Returns (rgb, new state)."""
+                    frame: int, kind: str = "di", tuning=None, prev_fetched=None, rows=None,
+                    surf_all: Surface | None = None):
+    """The SVGF chain for one channel. Returns (rgb, new state). With
+    ``rows`` (a ``parallel.rows.RowBlock``) the inputs and outputs are the
+    block's (forward only): one all-gather of the variance taps' luma,
+    then one of each à-trous pass's colour and variance; the taps read
+    the surface of ``surf_all``, the whole screen's (gathered here where
+    not given)."""
     from ..config import DEFAULT_TUNING
 
     tuning = tuning or DEFAULT_TUNING
     color, moments = temporal_reproject(samples, surf, reproj, state,
-                                        tuning.svgf_history_clamp, prev_fetched)
-    var = estimate_variance(color, moments, surf, tuning.svgf_variance_min_history)
-    h, w = var.shape
+                                        tuning.svgf_history_clamp, prev_fetched, rows)
+    taps = geometry = None
+    if rows is not None and rows.split:
+        surf_all = whole(rows, surf) if surf_all is None else surf_all
+        sky_all = ~surf_all.is_some
+        taps = (whole(rows, vm.luma(color)), surf_all.depth, surf_all.normal, sky_all)
+        geometry = (surf_all.depth, surf_all.normal, sky_all.to(torch.float32))
+    var = estimate_variance(color, moments, surf, tuning.svgf_variance_min_history, rows, taps)
+    # the jitter of every pixel the taps read: the whole screen's under a split
+    h, w = var.shape if taps is None else taps[0].shape
     _, _, bn_x, bn_y = bluenoise.sample_pair_screen(h, w, frame, var.device)
     bn_x = bn_x - 0.5
     bn_y = bn_y - 0.5
@@ -261,22 +297,26 @@ def denoise_channel(samples, surf: Surface, reproj: Reprojection, state: Denoise
         jitter = None
         if int(amp * 0.5) > 0:
             jitter = ((bn_y * amp).to(torch.int64), (bn_x * amp).to(torch.int64))
+        pass_taps = None if geometry is None else whole(rows, (color, var)) + geometry
         color, var = _wavelet(stride, float(1 + nth), sigma_ab, color, var, surf.depth,
-                              surf.normal, skyf, jitter)
+                              surf.normal, skyf, jitter, rows, pass_taps)
         if nth == 0:
             new_prev_color = color
     return color, DenoiserState(prev_color=new_prev_color, prev_moments=moments)
 
 
 def denoise_pair(di_samples, gi_samples, surf: Surface, reproj: Reprojection,
-                 di_state: DenoiserState, gi_state: DenoiserState, frame: int, tuning=None):
+                 di_state: DenoiserState, gi_state: DenoiserState, frame: int, tuning=None,
+                 rows=None, surf_all: Surface | None = None):
     """SVGF on the DI- and GI-diffuse channels with one shared bilinear
     history fetch. Returns (di_rgb, di_state'), (gi_rgb, gi_state')."""
     prev = bilinear_reproject(
         reproj,
-        torch.cat([di_state.prev_color, di_state.prev_moments,
-                   gi_state.prev_color, gi_state.prev_moments], dim=-1),
+        whole(rows, torch.cat([di_state.prev_color, di_state.prev_moments,
+                               gi_state.prev_color, gi_state.prev_moments], dim=-1)),
     )
-    di = denoise_channel(di_samples, surf, reproj, di_state, frame, "di", tuning, prev[..., 0:6])
-    gi = denoise_channel(gi_samples, surf, reproj, gi_state, frame, "gi", tuning, prev[..., 6:12])
+    di = denoise_channel(di_samples, surf, reproj, di_state, frame, "di", tuning, prev[..., 0:6],
+                         rows, surf_all)
+    gi = denoise_channel(gi_samples, surf, reproj, gi_state, frame, "gi", tuning, prev[..., 6:12],
+                         rows, surf_all)
     return di, gi

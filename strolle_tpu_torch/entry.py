@@ -35,13 +35,14 @@ def entry(device=None):
 
 def _dryrun(mesh, device) -> str:
     """One training step with the rows split over ``mesh`` and one realtime
-    frame with its trace calls split, at the JAX dry run's shapes; both
-    results must be finite."""
+    frame with its rows split (each rank holding its block of the state),
+    at the JAX dry run's shapes; both results must be finite, and the
+    frame's gathered image whole."""
     from .bvh import scene_with_bvh
     from .models.restir import RenderConfig
     from .models.train import FIELDS, params_from_scene, train_step_sharded
-    from .parallel.frame_sharding import (init_state_sharded, render_frame_sharded,
-                                          replicate_scene)
+    from .parallel.frame_sharding import (gather_frame, init_state_sharded,
+                                          render_frame_sharded, replicate_scene)
     from .scene.cornell import cornell_box, cornell_camera
 
     n = mesh.size()
@@ -58,8 +59,10 @@ def _dryrun(mesh, device) -> str:
     rt_scene = replicate_scene(mesh, scene_with_bvh(cornell_box(device=device)))
     state = init_state_sharded(mesh, rt_cam)
     channels, _ = render_frame_sharded(mesh, rt_scene, rt_cam, state, 1, RenderConfig())
-    if not bool(torch.isfinite(channels["image"]).all()):
-        raise RuntimeError("dryrun: the realtime frame is not finite")
+    image = gather_frame(channels)["image"]
+    if image.shape != (rt_cam.height, rt_cam.width, 3) or not bool(torch.isfinite(image).all()):
+        raise RuntimeError(f"dryrun: the realtime frame {tuple(image.shape)} is not whole and "
+                           "finite")
     return (f"dryrun_multichip({n}): loss={float(loss):.6f} grad_norm={gnorm:.6f} "
             "realtime_frame_sharded=ok ok")
 

@@ -52,11 +52,12 @@ def texture(device) -> torch.Tensor:
     return torch.as_tensor(table_numpy(), device=torch.device(device))
 
 
-def sample_pair_screen(h: int, w: int, frame: int, device):
-    """Blue-noise pairs for the whole screen, pixel (x, y) = (col, row):
-    four [h, w] planes (x1, y1, x2, y2)."""
+def sample_pair_screen(h: int, w: int, frame: int, device, y0: int = 0):
+    """Blue-noise pairs for ``h`` screen rows from row ``y0`` (the whole
+    screen by default), pixel (x, y) = (col, row): four [h, w] planes
+    (x1, y1, x2, y2)."""
     frame = int(frame)
-    ys = (torch.arange(h, device=device) + 11 * frame) % SIZE
+    ys = (torch.arange(y0, y0 + h, device=device) + 11 * frame) % SIZE
     xs = (torch.arange(w, device=device) + 71 * frame) % SIZE
     tiled = texture(str(torch.device(device)))[ys][:, xs]
     return tiled[..., 0], tiled[..., 1], tiled[..., 2], tiled[..., 3]

@@ -21,10 +21,10 @@ def compaction_pays(scene, width: int) -> bool:
     return width % 2 == 0 and scene.geometry.num_triangles > BRUTE_FORCE_MAX_TRIS
 
 
-def row_parity(f: int, h: int, device) -> torch.Tensor:
-    """[H] active x parity for checkerboard frame key ``f``:
-    active(x, y) <=> x % 2 == (f + y) % 2."""
-    return (int(f) + torch.arange(h, dtype=torch.int32, device=device)) % 2
+def row_parity(f: int, h: int, device, y0: int = 0) -> torch.Tensor:
+    """[h] active x parity of the ``h`` rows from row ``y0`` for
+    checkerboard frame key ``f``: active(x, y) <=> x % 2 == (f + y) % 2."""
+    return (int(f) + torch.arange(y0, y0 + h, dtype=torch.int32, device=device)) % 2
 
 
 def _rowcond(parity: torch.Tensor, ndim: int) -> torch.Tensor:

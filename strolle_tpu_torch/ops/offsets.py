@@ -69,18 +69,21 @@ def probe_margin(base_radius: float, h: int, w: int) -> int:
 
 class SharedOffsetTaps:
     """Screen fields fetched at per-pixel table offsets, mirrored at the
-    edges."""
+    edges. The fields cover the whole screen; the pixels that fetch are
+    the whole screen's, or with ``rows`` (a ``parallel.rows.RowBlock``)
+    the block's, each at its global row."""
 
-    def __init__(self, arrays, margin: int):
+    def __init__(self, arrays, margin: int, rows=None):
         self.arrays = arrays
         self.h, self.w = arrays[0].shape[:2]
         self.m = margin
+        self.y0, self.n = (0, self.h) if rows is None else (rows.y0, rows.rows)
 
     def coords(self, dy, dx, sel):
         """The mirrored (y, x) each pixel's selector points at."""
         oy, ox = self.offset_of(dy, dx, sel)
         dev = sel.device
-        ys = torch.arange(self.h, dtype=torch.int32, device=dev)[:, None]
+        ys = torch.arange(self.y0, self.y0 + self.n, dtype=torch.int32, device=dev)[:, None]
         xs = torch.arange(self.w, dtype=torch.int32, device=dev)[None, :]
         y, x = ys + oy, xs + ox
         y = torch.where(y < 0, -y, y)
@@ -96,7 +99,7 @@ class SharedOffsetTaps:
         idx = (y.long() * self.w + x.long()).reshape(-1)
         return [
             a.reshape((self.h * self.w,) + a.shape[2:])[idx].reshape(
-                (self.h, self.w) + a.shape[2:]
+                (self.n, self.w) + a.shape[2:]
             )
             for a in self.arrays
         ]

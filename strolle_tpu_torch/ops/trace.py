@@ -31,7 +31,9 @@ rays' leading (pixel-row) axis over the ranks of a
 ``torch.distributed`` device mesh, as the JAX package's shard_map does:
 each rank traces its own block of rows through the route above (its
 kernel) and the blocks are gathered, so every rank returns the whole
-result. The split is forward only.
+result. The split is forward only. The row-split realtime frame
+(``parallel/frame_sharding.py``) does not enter it: each of its ranks
+holds only its own rows' rays and traces them unsplit.
 """
 
 from __future__ import annotations

@@ -11,9 +11,10 @@ code.
 
 - ``sharding``: the reference sample, each rank tracing only its own
   rows and the blocks gathered at the end.
-- ``frame_sharding``: the realtime frame. Every rank holds the whole
-  state and runs the per-pixel and cross-pixel stages at full height;
-  only the trace calls split their rows (``ops.trace.trace_rows_sharded``).
+- ``frame_sharding``: the realtime frame. Every rank holds, computes and
+  returns only its block of rows (``rows.RowBlock``, passed through the
+  stages) and all-gathers only the arrays that reprojection, the spatial
+  taps and the à-trous stencils read.
 - ``distributed``: process-group set-up (torchrun's variables), the
   host x chip mesh and its sample and training step.
 

@@ -32,6 +32,7 @@ from ..ops.kernels import probe_kernels
 from ..ops.kernels.probe_kernels import try_seed
 from ..ops.lights import gather_light, radiance, shadow_ray_bnoise
 from ..ops.trace import _TRACE_MESH, trace_anyhit
+from ..parallel.rows import span, whole
 from ..scene.types import LIGHT_NONE, Scene
 from . import reservoir as rsv
 from .mis import mis_eval
@@ -67,12 +68,14 @@ def _candidate_pdf(scene: Scene, surf: Surface, light_id) -> torch.Tensor:
 
 
 def di_sampling(scene: Scene, camera: Camera, surf: Surface, seed: int,
-                bnoise_sample, tuning: Tuning = DEFAULT_TUNING) -> rsv.DiReservoirs:
+                bnoise_sample, tuning: Tuning = DEFAULT_TUNING,
+                rows=None) -> rsv.DiReservoirs:
     """RIS over up to 16 uniform light picks, then one blue-noise shadow
-    ray; occluded candidates keep their sample with w = 0."""
+    ray; occluded candidates keep their sample with w = 0. With ``rows``
+    (a ``parallel.rows.RowBlock``) the per-pixel inputs are the block's."""
     shape = surf.depth.shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     state = rng.wnoise_new(seed, xs, ys)
 
     lcount = scene.lights.count
@@ -114,11 +117,13 @@ def di_sampling(scene: Scene, camera: Camera, surf: Surface, seed: int,
 def di_temporal(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
                 reproj: Reprojection, curr: rsv.DiReservoirs, prev: rsv.DiReservoirs,
                 seed: int, tuning: Tuning = DEFAULT_TUNING,
-                prefetched=None) -> rsv.DiReservoirs:
+                prefetched=None, rows=None) -> rsv.DiReservoirs:
     """Temporal merge with the reprojected history: M clamp, light
     kill/remap, defensive pairwise MIS, norm_mis. ``prefetched``:
-    (rhs, rhs_surf) already gathered at the reprojected position."""
-    xs, ys = screen_xy(camera)
+    (rhs, rhs_surf) already gathered at the reprojected position. With
+    ``rows`` (a ``parallel.rows.RowBlock``) the per-pixel inputs are the
+    block's, while ``prev`` and ``prev_surf`` cover the whole screen."""
+    xs, ys = screen_xy(camera, rows)
     state = rng.wnoise_new(seed, xs, ys)
     shape = surf.depth.shape
     dev = surf.depth.device
@@ -174,31 +179,39 @@ def di_temporal(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
     return rsv.select(surf.is_some, main, rsv.DiReservoirs.empty(shape, dev))
 
 
-def checkerboard_active(camera: Camera, frame: int) -> torch.Tensor:
-    """Pixels the spatial pass processes this frame: x parity equals
-    (frame // 2 + 1 + y) % 2."""
-    xs, ys = screen_xy(camera)
+def checkerboard_active(camera: Camera, frame: int, rows=None) -> torch.Tensor:
+    """Pixels the spatial pass processes this frame (of the block of
+    ``rows``, where given): x parity equals (frame // 2 + 1 + y) % 2."""
+    xs, ys = screen_xy(camera, rows)
     return (xs % 2) == ((int(frame) // 2 + 1 + ys) % 2)
 
 
-def _di_probe_tensor(camera: Camera, surf: Surface, res: rsv.DiReservoirs, seed: int,
-                     tuning: Tuning, state):
-    """The tensor probe of di_spatial: (rhs_x, rhs_y, found, state)."""
-    h, w = surf.depth.shape
-    shape = (h, w)
+def probe_taps(surf: Surface, res) -> tuple:
+    """The planes the tensor probe fetches at the neighbours: depth,
+    normal and the gate (0 = sky, 1 = surface with an empty reservoir,
+    2 = surface and m > 0)."""
+    return (surf.depth, surf.normal,
+            torch.where(surf.is_some, torch.where(res.m > 0.0, 2.0, 1.0), 0.0))
+
+
+def _di_probe_tensor(camera: Camera, surf: Surface, taps, seed: int, tuning: Tuning, state,
+                     rows=None):
+    """The tensor probe of di_spatial: (rhs_x, rhs_y, found, state).
+    ``taps``: ``probe_taps`` over the whole screen; with ``rows`` (a
+    ``parallel.rows.RowBlock``) the pixels that probe, ``surf``'s, are
+    the block's."""
+    shape = surf.depth.shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     radii = shoff.radius_levels(tuning.di_spatial_radius)
     n_lvls = len(radii)
     n_var = 2
-    margin = shoff.probe_margin(tuning.di_spatial_radius, h, w)
+    margin = shoff.probe_margin(tuning.di_spatial_radius, camera.height, camera.width)
 
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     rhs_x = torch.zeros(shape, dtype=torch.int32, device=dev)
     rhs_y = torch.zeros(shape, dtype=torch.int32, device=dev)
-    # 0 = sky, 1 = surface with an empty reservoir, 2 = surface and m > 0
-    gate = torch.where(surf.is_some, torch.where(res.m > 0.0, 2.0, 1.0), 0.0)
-    probe = shoff.SharedOffsetTaps((surf.depth, surf.normal, gate), margin=margin)
+    probe = shoff.SharedOffsetTaps(taps, margin=margin, rows=rows)
     level = torch.zeros(shape, dtype=torch.int32, device=dev)
     for nth in range(tuning.di_spatial_samples):
         dy, dx = shoff.draw_offset_table(try_seed(seed, nth), radii, n_var, margin=margin,
@@ -222,14 +235,16 @@ def _di_probe_tensor(camera: Camera, surf: Surface, res: rsv.DiReservoirs, seed:
     return rhs_x, rhs_y, done, state
 
 
-def _probe_kernel_enabled(use_pallas) -> bool:
+def _probe_kernel_enabled(use_pallas, rows=None) -> bool:
     """The fused probe runs when ``STROLLE_PROBE_KERNEL=1``, the caller
     does not ask for the tensor route (``use_pallas=False``) and no device
-    mesh splits the frame's trace rows (``ops.trace.trace_rows_sharded``):
-    under a mesh the JAX package takes the tensor probe, which in GI mode
-    is not bit-equal to the kernel."""
+    mesh splits the frame: neither its rows (``rows``, the block a
+    ``render_frame_sharded`` rank computes, on a mesh of any size) nor its
+    trace calls (``ops.trace.trace_rows_sharded``). Under a mesh the JAX
+    package takes the tensor probe, which in GI mode is not bit-equal to
+    the kernel."""
     return (os.environ.get("STROLLE_PROBE_KERNEL", "0") == "1" and use_pallas is not False
-            and _TRACE_MESH.get() is None)
+            and rows is None and _TRACE_MESH.get() is None)
 
 
 def _draw_probe_tables(seed: int, tries: int, radii, n_var: int, margin: int, device):
@@ -278,10 +293,12 @@ def probe_fused(camera: Camera, surf: Surface, planes, seed: int, tries: int, ra
     by one word per try, [the clamped Jacobian]): the accepted
     neighbour's mirrored coordinates (0 where none), as the tensor probe
     gives them. On the card this is one kernel launch; on the CPU the
-    route entry's plain version."""
+    route entry's plain version. The fields are the whole screen's: a
+    block of a row-split frame takes the tensor probe
+    (``_probe_kernel_enabled``)."""
     if tuple(surf.depth.shape) != (camera.height, camera.width):
         raise ValueError(f"probe_fused: fields of shape {tuple(surf.depth.shape)} for a "
-                         f"{camera.width}x{camera.height} camera")
+                         f"{camera.width}x{camera.height} camera (the whole screen)")
     return probe_kernels.probe_route((surf.depth, surf.normal, surf.is_some, *planes), seed,
                                      state, radii=shoff.radius_levels(radius),
                                      **_probe_kw(surf, tries, radius, gi_kw))
@@ -289,28 +306,36 @@ def probe_fused(camera: Camera, surf: Surface, planes, seed: int, tries: int, ra
 
 def di_spatial(scene: Scene, camera: Camera, surf: Surface, res: rsv.DiReservoirs,
                seed: int, frame: int, tuning: Tuning = DEFAULT_TUNING,
-               use_pallas: bool | None = None) -> rsv.DiReservoirs:
+               use_pallas: bool | None = None, rows=None,
+               surf_all: Surface | None = None) -> rsv.DiReservoirs:
     """Checkerboarded spatial reuse: one similar neighbour in <= 8 tries
     at shared offsets (radius 128 px halving to >= 5 on rejection, depth
     within 33%, normal dot >= 0.33), both cross-visibility rays traced,
     merged with visibility-weighted MIS. The other half passes through.
-    The probe takes the fused route where ``_probe_kernel_enabled``."""
+    The probe takes the fused route where ``_probe_kernel_enabled``. With
+    ``rows`` (a ``parallel.rows.RowBlock``) the inputs are the block's:
+    the neighbours are read from the reservoirs gathered to the whole
+    screen (one all-gather) and from ``surf_all``, the whole screen's
+    surface (gathered here where not given)."""
     h, w = surf.depth.shape
     shape = (h, w)
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     state = rng.wnoise_new(seed, xs, ys)
-    active = checkerboard_active(camera, frame)
+    active = checkerboard_active(camera, frame, rows)
     lhs = res
 
-    if _probe_kernel_enabled(use_pallas):
+    res_all = whole(rows, res)
+    surf_all = whole(rows, surf) if surf_all is None else surf_all
+    if _probe_kernel_enabled(use_pallas, rows):
         rhs_x, rhs_y, done, state = probe_fused(
             camera, surf, (res.m,), seed, tuning.di_spatial_samples, tuning.di_spatial_radius, state)
     else:
-        rhs_x, rhs_y, done, state = _di_probe_tensor(camera, surf, res, seed, tuning, state)
+        rhs_x, rhs_y, done, state = _di_probe_tensor(
+            camera, surf, probe_taps(surf_all, res_all), seed, tuning, state, rows)
 
     found = done & active & surf.is_some
-    rhs, rhs_surf = gather.gather_tree((res, surf), rhs_y, rhs_x)
+    rhs, rhs_surf = gather.gather_tree((res_all, surf_all), rhs_y, rhs_x)
     rhs = rsv.select(found, rhs, rsv.DiReservoirs.empty(shape, dev))
 
     lhs_rhs_pdf = torch.where(
@@ -325,7 +350,7 @@ def di_spatial(scene: Scene, camera: Camera, surf: Surface, res: rsv.DiReservoir
     a_len = torch.where(found & (lhs_rhs_pdf > 0.0), a_len, 0.0)
     b_len = torch.where(found & (rhs_lhs_pdf > 0.0), b_len, 0.0)
     if cb.compaction_pays(scene, w):
-        parity = cb.row_parity(int(frame) // 2 + 1, h, dev)
+        parity = cb.row_parity(int(frame) // 2 + 1, h, dev, span(rows, h)[0])
         a_occ, b_occ = cb.paired_anyhit(
             trace_anyhit, scene, parity, (a_o, a_d, a_len), (b_o, b_d, b_len)
         )

@@ -28,9 +28,10 @@ from ..ops import brdf, checkerboard as cb, gather, math as vm, offsets as shoff
 from ..ops.hit import Surface
 from ..ops.lights import gather_light, radiance, shadow_ray_wnoise
 from ..ops.trace import trace_anyhit, trace_surface
+from ..parallel.rows import span, whole
 from ..scene.types import Scene
 from ..sky.atmosphere import SUN_DISTANCE, sample_atmosphere, sample_sky, sun_direction
-from . import reservoir as rsv
+from . import di, reservoir as rsv
 from .di import _probe_kernel_enabled, checkerboard_active, probe_fused, try_seed
 from .mis import mis_eval
 from .primary import Reprojection
@@ -194,7 +195,8 @@ def gi_reproject(camera: Camera, surf: Surface, reproj: Reprojection, gi_prev: G
                  prev_surf: Surface | None = None, prefetched=None):
     """The previous reservoir at the reprojected position; confidence :=
     1, v1 := the current hit point. Returns (rep, the previous surface
-    at the same position, or None)."""
+    at the same position, or None). ``gi_prev`` and ``prev_surf`` cover
+    the whole screen; ``surf`` and ``reproj`` may be a row block's."""
     shape = surf.depth.shape
     dev = surf.depth.device
     if prefetched is not None:
@@ -220,14 +222,15 @@ def _sky(luts, sun, d):
 
 def gi_sampling(scene: Scene, camera: Camera, surf: Surface, rep: GiReservoirs, seed_a: int,
                 seed_b: int, frame: int, luts=None, use_pallas: bool | None = None,
-                tuning: Tuning = DEFAULT_TUNING) -> GiReservoirs:
+                tuning: Tuning = DEFAULT_TUNING, rows=None) -> GiReservoirs:
     """Trace the bounce ray (a fresh BRDF sample on tracing frames, the
     stored reservoir ray on validation frames), then shade the secondary
     vertex with sky-vs-RIS light selection and one shadow ray. Covered
-    pixels only; the others come back empty."""
+    pixels only; the others come back empty. With ``rows`` (a
+    ``parallel.rows.RowBlock``) the inputs are the block's."""
     shape = surf.depth.shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     tracing = is_gi_tracing(frame)
     covered = gi_coverage(xs, ys, frame)
 
@@ -248,7 +251,8 @@ def gi_sampling(scene: Scene, camera: Camera, surf: Surface, rep: GiReservoirs, 
 
     cb_parity = None
     if cb.compaction_pays(scene, shape[1]):
-        cb_parity = cb.row_parity(frame // 2 if tracing else frame, shape[0], dev)
+        cb_parity = cb.row_parity(frame // 2 if tracing else frame, shape[0], dev,
+                                  span(rows, shape[0])[0])
         gi_surf = cb.expand_tree(cb_parity, trace_surface(
             scene, cb.compact(cb_parity, gi_origin), cb.compact(cb_parity, gi_dir),
             regularize=True, use_pallas=use_pallas,
@@ -373,12 +377,14 @@ def gi_sampling(scene: Scene, camera: Camera, surf: Surface, rep: GiReservoirs, 
 def gi_temporal(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
                 reproj: Reprojection, cand: GiReservoirs, rep: GiReservoirs, seed: int,
                 frame: int, tuning: Tuning = DEFAULT_TUNING,
-                rhs_surf: Surface | None = None) -> GiReservoirs:
+                rhs_surf: Surface | None = None, rows=None) -> GiReservoirs:
     """MIS merge with the history on tracing frames; merge-only with
-    sample validation on validation frames."""
+    sample validation on validation frames. With ``rows`` (a
+    ``parallel.rows.RowBlock``) the per-pixel inputs are the block's,
+    while ``prev_surf`` covers the whole screen."""
     shape = surf.depth.shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     state = rng.wnoise_new(seed, xs, ys)
     tracing = is_gi_tracing(frame)
     empty = GiReservoirs.empty(shape, dev)
@@ -435,29 +441,33 @@ def gi_temporal(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
     return select(surf.is_some, main, empty)
 
 
-def _gi_probe_tensor(camera: Camera, surf: Surface, res: GiReservoirs, seed: int,
-                     tuning: Tuning, state):
+def probe_taps(surf: Surface, res: GiReservoirs) -> tuple:
+    """The planes gi_spatial's tensor probe fetches at the neighbours:
+    ``di.probe_taps`` (depth, normal, gate), the Jacobian's old parts,
+    v2_point and v2_normal."""
+    p_od, p_oc = jacobian_old_parts(res.v1_point, res.v2_point, res.v2_normal)
+    return (*di.probe_taps(surf, res), p_od, p_oc, res.v2_point, res.v2_normal)
+
+
+def _gi_probe_tensor(camera: Camera, surf: Surface, taps, seed: int, tuning: Tuning, state,
+                     rows=None):
     """The tensor probe of gi_spatial: (rhs_x, rhs_y, found, state,
-    the clamped Jacobian)."""
+    the clamped Jacobian). ``taps``: ``probe_taps`` over the whole
+    screen; with ``rows`` (a ``parallel.rows.RowBlock``) the pixels that
+    probe, ``surf``'s, are the block's."""
     shape = surf.depth.shape
-    h, w = shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     radii = shoff.radius_levels(tuning.gi_spatial_radius)
     n_lvls = len(radii)
     n_var = 2
-    margin = shoff.probe_margin(tuning.gi_spatial_radius, h, w)
+    margin = shoff.probe_margin(tuning.gi_spatial_radius, camera.height, camera.width)
 
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     rhs_x = torch.zeros(shape, dtype=torch.int32, device=dev)
     rhs_y = torch.zeros(shape, dtype=torch.int32, device=dev)
     rhs_jac = torch.zeros(shape, device=dev)
-    gate = torch.where(surf.is_some, torch.where(res.m > 0.0, 2.0, 1.0), 0.0)
-    p_od, p_oc = jacobian_old_parts(res.v1_point, res.v2_point, res.v2_normal)
-    probe = shoff.SharedOffsetTaps(
-        (surf.depth, surf.normal, gate, p_od, p_oc, res.v2_point, res.v2_normal),
-        margin=margin,
-    )
+    probe = shoff.SharedOffsetTaps(taps, margin=margin, rows=rows)
     level = torch.zeros(shape, dtype=torch.int32, device=dev)
     j_lo, j_hi = 1.0 / tuning.gi_jacobian_reject, tuning.gi_jacobian_reject
     c_lo, c_hi = 1.0 / tuning.gi_jacobian_clamp, tuning.gi_jacobian_clamp
@@ -495,30 +505,34 @@ def probe_planes(surf: Surface, res: GiReservoirs):
 
 def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, seed: int,
                frame: int, tuning: Tuning = DEFAULT_TUNING,
-               use_pallas: bool | None = None) -> GiReservoirs:
+               use_pallas: bool | None = None, rows=None,
+               surf_all: Surface | None = None) -> GiReservoirs:
     """DI's spatial reuse plus the reconnection Jacobian (reject outside
     [1/10, 10], clamp to [1/3, 3]) on both the MIS and the merge weight.
     Checkerboarded; the probe takes di_spatial's routes (in GI mode the
     fused probe's Jacobian may differ from the tensor probe's in its last
-    bits)."""
+    bits). With ``rows`` (a ``parallel.rows.RowBlock``) the inputs are
+    the block's, and the neighbours are read as di_spatial reads them."""
     shape = surf.depth.shape
     h, w = shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     state = rng.wnoise_new(seed, xs, ys)
-    active = checkerboard_active(camera, frame)
+    active = checkerboard_active(camera, frame, rows)
     lhs = res
 
-    if _probe_kernel_enabled(use_pallas):
+    res_all = whole(rows, res)
+    surf_all = whole(rows, surf) if surf_all is None else surf_all
+    if _probe_kernel_enabled(use_pallas, rows):
         rhs_x, rhs_y, done, state, rhs_jac = probe_fused(
             camera, surf, probe_planes(surf, res), seed, tuning.gi_spatial_samples, tuning.gi_spatial_radius,
             state, jac_reject=tuning.gi_jacobian_reject, jac_clamp=tuning.gi_jacobian_clamp)
     else:
-        rhs_x, rhs_y, done, state, rhs_jac = _gi_probe_tensor(camera, surf, res, seed, tuning,
-                                                              state)
+        rhs_x, rhs_y, done, state, rhs_jac = _gi_probe_tensor(
+            camera, surf, probe_taps(surf_all, res_all), seed, tuning, state, rows)
 
     found = done & active & surf.is_some & ~lhs.is_empty
-    rhs, rhs_surf = gather.gather_tree((res, surf), rhs_y, rhs_x)
+    rhs, rhs_surf = gather.gather_tree((res_all, surf_all), rhs_y, rhs_x)
     rhs = select(found, rhs, GiReservoirs.empty(shape, dev))
 
     lhs_rhs_pdf = torch.where(found, sample_pdf(lhs, rhs_surf), 0.0)
@@ -528,7 +542,7 @@ def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, s
     a_len = torch.where(found & (lhs_rhs_pdf > 0.0), a_len, 0.0)
     b_len = torch.where(found & (rhs_lhs_pdf > 0.0), b_len, 0.0)
     if cb.compaction_pays(scene, w):
-        parity = cb.row_parity(int(frame) // 2 + 1, h, dev)
+        parity = cb.row_parity(int(frame) // 2 + 1, h, dev, span(rows, h)[0])
         a_occ, b_occ = cb.paired_anyhit(
             trace_anyhit, scene, parity, (a_o, a_d, a_len), (b_o, b_d, b_len)
         )
@@ -557,14 +571,17 @@ def gi_spatial(scene: Scene, camera: Camera, surf: Surface, res: GiReservoirs, s
 
 def gi_preview(scene: Scene, camera: Camera, surf: Surface, center: GiReservoirs,
                neighbors: GiReservoirs, seed: int, max_radius: float,
-               tuning: Tuning = DEFAULT_TUNING) -> GiReservoirs:
+               tuning: Tuning = DEFAULT_TUNING, rows=None,
+               surf_all: Surface | None = None) -> GiReservoirs:
     """Merge-only spatial pass (no visibility rays) over up to 8 - m
     disk samples: depth gate 25%, normal gate 0.5, Jacobian-weighted
-    merges, norm_avg."""
+    merges, norm_avg. With ``rows`` (a ``parallel.rows.RowBlock``) the
+    inputs are the block's: the neighbours' planes are gathered to the
+    whole screen (one all-gather), and their surface is ``surf_all``'s
+    (gathered here where not given)."""
     shape = surf.depth.shape
-    h, w = shape
     dev = surf.depth.device
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     state = rng.wnoise_new(seed, xs, ys)
 
     main = GiReservoirs.empty(shape, dev)
@@ -575,12 +592,14 @@ def gi_preview(scene: Scene, camera: Camera, surf: Surface, center: GiReservoirs
     max_samples = torch.floor(8.0 * (1.0 - torch.clamp(main.m / 8.0, 0.0, 1.0))).to(torch.int32)
 
     n_var = 4
-    margin = shoff.probe_margin(max_radius, h, w)
+    margin = shoff.probe_margin(max_radius, camera.height, camera.width)
     nb_od, nb_oc = jacobian_old_parts(neighbors.v1_point, neighbors.v2_point, neighbors.v2_normal)
+    surf_all = whole(rows, surf) if surf_all is None else surf_all
     probe = shoff.SharedOffsetTaps(
-        (surf.depth, surf.normal, surf.is_some, neighbors.m, neighbors.w, neighbors.radiance,
-         neighbors.v2_point, neighbors.v2_normal, nb_od, nb_oc),
-        margin=margin,
+        (surf_all.depth, surf_all.normal, surf_all.is_some,
+         *whole(rows, (neighbors.m, neighbors.w, neighbors.radiance, neighbors.v2_point,
+                       neighbors.v2_normal, nb_od, nb_oc))),
+        margin=margin, rows=rows,
     )
     j_lo, j_hi = 1.0 / tuning.gi_jacobian_reject, tuning.gi_jacobian_reject
     c_lo, c_hi = 1.0 / tuning.gi_jacobian_clamp, tuning.gi_jacobian_clamp
@@ -640,13 +659,17 @@ def gi_resolve(surf: Surface, res: GiReservoirs):
 def gi_pipeline(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
                 reproj: Reprojection, gi_prev: GiReservoirs, seed: int, frame: int,
                 bnoise_second=None, luts=None, use_pallas: bool | None = None,
-                tuning: Tuning = DEFAULT_TUNING, prefetched=None):
+                tuning: Tuning = DEFAULT_TUNING, prefetched=None, rows=None, surf_all=None):
     """The per-frame GI schedule. Sampling runs on even tracing frames
     and on all validation frames; odd tracing frames skip it and run the
-    spatial pass instead."""
+    spatial pass instead. With ``rows`` (a ``parallel.rows.RowBlock``)
+    the per-pixel inputs and outputs are the block's, while ``prev_surf``,
+    ``gi_prev`` and ``surf_all`` (``surf`` gathered; here where not given)
+    cover the whole screen."""
     from ..models.restir import derive_seed
 
     frame = int(frame)
+    surf_all = whole(rows, surf) if surf_all is None else surf_all
     tracing = is_gi_tracing(frame)
     rep, rep_surf = gi_reproject(camera, surf, reproj, gi_prev, prev_surf, prefetched)
     odd_tracing = tracing and frame % 2 == 1
@@ -654,17 +677,17 @@ def gi_pipeline(scene: Scene, camera: Camera, surf: Surface, prev_surf: Surface,
         cand = GiReservoirs.empty(surf.depth.shape, surf.depth.device)
     else:
         cand = gi_sampling(scene, camera, surf, rep, derive_seed(seed, 10),
-                           derive_seed(seed, 11), frame, luts, use_pallas, tuning)
+                           derive_seed(seed, 11), frame, luts, use_pallas, tuning, rows)
     t = gi_temporal(scene, camera, surf, prev_surf, reproj, cand, rep, derive_seed(seed, 12),
-                    frame, tuning, rhs_surf=rep_surf)
+                    frame, tuning, rhs_surf=rep_surf, rows=rows)
     if odd_tracing:
         source = gi_spatial(scene, camera, surf, t, derive_seed(seed, 13), frame, tuning,
-                            use_pallas)
+                            use_pallas, rows, surf_all)
     else:
         source = t
     p1 = gi_preview(scene, camera, surf, source, source, derive_seed(seed, 14),
-                    tuning.gi_spatial_radius, tuning)
+                    tuning.gi_spatial_radius, tuning, rows, surf_all)
     p2 = gi_preview(scene, camera, surf, p1, p1, derive_seed(seed, 15),
-                    tuning.gi_spatial_radius / 2.0, tuning)
+                    tuning.gi_spatial_radius / 2.0, tuning, rows, surf_all)
     diff, spec = gi_resolve(surf, p2)
     return diff, spec, source

@@ -44,14 +44,15 @@ class Reprojection:
 
 
 def primary_pass(scene: Scene, camera: Camera, prev_camera: Camera,
-                 use_pallas: bool | None = None):
-    """Ray-cast primary visibility. Returns (Surface [H, W], velocity as
-    (vel_x, vel_y) [H, W] planes): the hit point's screen motion against
+                 use_pallas: bool | None = None, rows=None):
+    """Ray-cast primary visibility of the whole screen, or of the rows of
+    ``rows`` (a ``parallel.rows.RowBlock``). Returns (Surface [H, W],
+    velocity as (vel_x, vel_y) [H, W] planes): the hit point's screen motion against
     the previous camera, zeroed where small or where nothing was hit.
     Where the scene carries per-instance motion, the hit point first goes
     back through its instance's previous-of-current affine (a miss takes
     triangle 0's instance; its velocity is zeroed anyway)."""
-    o, d = pixel_rays(camera, screen_grid(camera))
+    o, d = pixel_rays(camera, screen_grid(camera, rows))
     surf = trace_surface(scene, o, d, use_pallas=use_pallas)
     curr_x, curr_y = world_to_screen_xy(camera, surf.point)
     if scene.motion is not None:
@@ -85,11 +86,13 @@ def surface_similarity(a_normal, a_depth, b_normal, b_depth):
 
 
 def build_reprojection_map(camera: Camera, surf: Surface, prev_surf: Surface,
-                           velocity) -> Reprojection:
+                           velocity, rows=None) -> Reprojection:
     """prev pos = pos - velocity; confidence from the similarity of the
-    rounded previous tap; validity bits for the 4 bilinear taps."""
+    rounded previous tap; validity bits for the 4 bilinear taps. With
+    ``rows`` (a ``parallel.rows.RowBlock``) ``surf`` and ``velocity`` are
+    the block's and ``prev_surf`` is the whole screen's."""
     h, w = camera.height, camera.width
-    xs, ys = screen_xy(camera)
+    xs, ys = screen_xy(camera, rows)
     vel_x, vel_y = velocity
     prev_px = xs.to(torch.float32) - vel_x
     prev_py = ys.to(torch.float32) - vel_y
@@ -111,7 +114,7 @@ def build_reprojection_map(camera: Camera, surf: Surface, prev_surf: Surface,
     confidence = surface_similarity(pn, pd, surf.normal, surf.depth)
     confidence = torch.where(in_bounds & (surf.depth > 0.0), confidence, 0.0)
 
-    validity = torch.zeros((h, w), dtype=torch.int32, device=xs.device)
+    validity = torch.zeros(xs.shape, dtype=torch.int32, device=xs.device)
     corners = ((fx, fy), (cx, fy), (fx, cy), (cx, cy))
     for bit, ((px, py), (tn, td)) in enumerate(zip(corners, taps)):
         inb = (px >= 0) & (px < w) & (py >= 0) & (py < h)
@@ -128,8 +131,9 @@ def build_reprojection_map(camera: Camera, surf: Surface, prev_surf: Surface,
 
 
 def bilinear_reproject(reproj: Reprojection, values: torch.Tensor) -> torch.Tensor:
-    """Validity-masked 4-tap bilinear fetch of ``values`` [H, W, C] at
-    the reprojected coordinates; zeros where no tap is valid."""
+    """Validity-masked 4-tap bilinear fetch of ``values`` [H, W, C] (the
+    whole screen) at the reprojected coordinates of ``reproj``'s pixels;
+    zeros where no tap is valid."""
     px, py = reproj.prev_x, reproj.prev_y
     corner_taps, fy, fx = gather.take_bilinear((values,), py, px)
     ux = px - fx.to(torch.float32)

@@ -214,7 +214,8 @@ def test_kernel_route_matches_tensor_route(mode, kernel_on):
                        case["seed"],
                        TUNING.gi_spatial_samples, TUNING.gi_spatial_radius, state,
                        jac_reject=TUNING.gi_jacobian_reject, jac_clamp=TUNING.gi_jacobian_clamp),
-        gi._gi_probe_tensor(case["cam"], case["surf"], case["res"], case["seed"], TUNING, state),
+        gi._gi_probe_tensor(case["cam"], case["surf"], gi.probe_taps(case["surf"], case["res"]),
+                            case["seed"], TUNING, state),
     ]
     np.testing.assert_array_equal(probes[0][3].numpy(), probes[1][3].numpy())  # the rng state
     flips = _decision_flips(*([p.numpy() for p in pr[:3]] for pr in probes))

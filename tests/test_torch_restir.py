@@ -16,6 +16,14 @@ a CPU traces through trace_closest + surface_at, so the port's stages
 take ``use_pallas=False``; the fused kernel-4 route is held against that
 route separately.
 
+The same test spawns two gloo ranks (plain subprocesses that never
+import JAX) before the JAX compile, so that they overlap it: they render
+the port's frames 0-6 at the same tuning, seeds and LUTs with the rows
+split over the two ranks (``parallel.frame_sharding``, 12 rows a rank).
+Gathered, their channels equal the port's own unsplit frames bit for
+bit, and their images agree with the JAX frames as whole frames must
+(below).
+
 Tolerances. Stage by stage, with equal inputs, float fields agree
 within 1e-4 + 1e-3 relative (float32 rounding of XLA:CPU's fused
 multiply-adds against unfused PyTorch) on at least 99% of pixels, and
@@ -34,7 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_arrays import np_tree, scene_arrays
+from torch_port_arrays import CHILD_PRELUDE, np_tree, scene_arrays, spawn_ranks, wait_ranks
 
 from strolle_tpu.models import restir as jr
 from strolle_tpu.scene.cornell import cornell_box as jax_cornell_box
@@ -102,6 +110,33 @@ def _assert_stage(name: str, got, want, only=None):
         assert agree.mean() >= MIN_AGREE, f"{k}: {agree.mean():.4f} of pixels agree"
 
 
+#: Two ranks of the port's row-split frames at the test's size, tuning,
+#: seeds and LUTs (the port's Cornell equals the JAX one carried over).
+_SPLIT_RANKS = CHILD_PRELUDE + f"""
+import dataclasses
+from strolle_tpu_torch.config import DEFAULT_TUNING
+from strolle_tpu_torch.models.restir import RenderConfig
+from strolle_tpu_torch.parallel import frame_sharding as fs, sharding
+from strolle_tpu_torch.scene.cornell import cornell_box, cornell_camera
+from strolle_tpu_torch.sky.atmosphere import luts_for
+
+tuning = dataclasses.replace(DEFAULT_TUNING, di_spatial_samples=2, gi_spatial_samples=2,
+                             svgf_wavelet_passes=4)
+scene, cam = cornell_box(device="cpu"), cornell_camera({W}, {H}, device="cpu")
+luts = luts_for(scene.sun_altitude, "cpu")
+mesh = sharding.make_mesh(world, device="cpu")
+state = fs.init_state_sharded(mesh, cam)
+frames = []
+for f in range({FRAMES}):
+    ch, state = fs.render_frame_sharded(mesh, scene, cam, state, 7 * f + 3,
+                                        RenderConfig(differentiable=True, tuning=tuning), luts)
+    frames.append(fs.gather_frame(ch))
+if rank == 0:
+    torch.save(dict(frames=frames, tuning=dataclasses.asdict(tuning)), out)
+dist.destroy_process_group()
+"""
+
+
 def _compile_stages(jscene, jcam, js, jpre, jh, jluts, jtuning, seed):
     """Compiles the JAX DI, GI and SVGF-pair stage programs of frame 0 at
     once, in three threads (XLA compiles without holding the GIL), so
@@ -123,7 +158,8 @@ def _compile_stages(jscene, jcam, js, jpre, jh, jluts, jtuning, seed):
             done.result()
 
 
-def test_realtime_stages_match_jax():
+def test_realtime_stages_match_jax(tmp_path):
+    split_ranks = spawn_ranks(_SPLIT_RANKS, 2, tmp_path)
     jscene = jax_cornell_box()
     jcam = jax_cornell_camera(W, H)
     scene = convert.scene_from_arrays(scene_arrays(jscene), device="cpu")
@@ -212,16 +248,24 @@ def test_realtime_stages_match_jax():
 
     # the port's own frames, carrying their own state, on the same seeds
     state = tr.init_state(cam, device="cpu")
-    images = []
+    images, own = [], []
     for f in range(FRAMES):
         ch, state = tr.render_frame(scene, cam, state, _seed(f),
                                     tr.RenderConfig(differentiable=True, tuning=tuning),
                                     luts=luts)
         images.append(ch["image"].numpy())
-    got, want = np.mean(images), np.mean(jax_images)
-    assert abs(got - want) <= 0.01 * want, (got, want)
-    for a, b in zip(images, jax_images):
-        assert abs(a.mean() - b.mean()) <= 0.02 * b.mean()
+        own.append(ch)
+    split = wait_ranks(split_ranks, tmp_path)
+    assert split["tuning"] == dataclasses.asdict(tuning)
+    split_images = [ch["image"].numpy() for ch in split["frames"]]
+    for f, ch in enumerate(split["frames"]):
+        for k, v in ch.items():
+            assert v.shape[:2] == (H, W) and np.array_equal(v.numpy(), own[f][k].numpy()), (f, k)
+    for imgs in (images, split_images):
+        got, want = np.mean(imgs), np.mean(jax_images)
+        assert abs(got - want) <= 0.01 * want, (got, want)
+        for a, b in zip(imgs, jax_images):
+            assert abs(a.mean() - b.mean()) <= 0.02 * b.mean()
 
 
 def test_render_state_round_trip_from_jax_init_state():

@@ -189,3 +189,78 @@ def alpha_cornell_scenes(alpha: float = 0.4):
     })
     jscene = js.replace(geometry=geom, materials=mats, has_alpha=True)
     return jscene, convert.scene_from_arrays(scene_arrays(jscene), device="cpu")
+
+
+# -- spawned gloo ranks (plain subprocesses that never import JAX) ----------
+
+ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+#: Seconds after which a spawned rank is killed.
+CHILD_TIMEOUT = 120
+
+#: The head of a spawned rank's code: argv is (rank, world, store, output).
+CHILD_PRELUDE = """
+import sys
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
+"""
+
+
+def spawn_ranks(code: str, world: int, tmp_path) -> list:
+    """``world`` ranks of ``code`` as plain subprocesses (argv: rank,
+    world, store, output), with the repository and this directory on
+    their path."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(k, None)
+    store = str(tmp_path / "store")
+    return [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), store,
+                              str(tmp_path / f"rank{r}.pt")],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+
+def wait_ranks(procs, tmp_path):
+    """Rank 0's saved results, once every rank exited 0; every child is
+    killed after CHILD_TIMEOUT s."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=CHILD_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed (rc {p.returncode}):\n{err[-3000:]}"
+    return torch.load(tmp_path / "rank0.pt", weights_only=False)
+
+
+def blocks_scene(w: int, h: int):
+    """A port scene over 1,024 triangles with a BVH and the sun up (so
+    the realtime frame compacts its checkerboarded rays and its misses
+    see the sky): a 10x10 slab of boxes on two materials under one
+    light, built by the port's SceneEditor on the CPU; with its camera
+    at ``w`` x ``h``."""
+    from strolle_tpu_torch.camera import make_camera
+    from strolle_tpu_torch.examples.minecraft import box_triangles
+    from strolle_tpu_torch.scene.dynamics import SceneEditor
+
+    ed = SceneEditor(materials=[{"base_color": [0.7, 0.7, 0.7, 1.0], "roughness": 0.6},
+                                {"base_color": [0.3, 0.6, 0.3, 1.0], "roughness": 1.0}],
+                     light_capacity=4, sun_altitude=0.5, sun_azimuth=0.7, device="cpu")
+    ed.insert_light("lamp", pos=[0.0, 3.0, 2.0], radius=0.1, color=[10.0, 9.0, 7.0])
+    for x in range(-5, 5):
+        for z in range(-5, 5):
+            ed.insert_instance((x, z), box_triangles((x + 0.5, 0.15 * ((x * z) % 3) - 0.5,
+                                                      z + 0.5)), material_id=(x + z) % 2)
+    cam = make_camera(eye=[6.0, 4.0, 7.0], target=[0.0, 0.5, 0.0], fov_y=np.deg2rad(55.0),
+                      width=w, height=h, device="cpu")
+    return ed.tick(), cam
