@@ -151,7 +151,29 @@ Run from the root of the repository:  python3 chip_smoke.py
    and stress_large's kernels 5 and 6 (262,144 triangles, 1,024
    clusters) against their plain versions on 32 seeded image rows of
    primaries and light shadow rays, with the warps whose cluster lists
-   overflow LIST_CAP counted there and over every primary.
+   overflow LIST_CAP counted there and over every primary and light
+   shadow ray (each kernel timed on all of them).
+   Then (phase 5l) kernel 5's exact-tie rule: kernels 5 and 6 on the
+   dungeon's rows twice over, clustered anew (kernel 5 bit-equal to its
+   plain version on the primaries and the random rays, every hit on the
+   first copy; kernel 6 on the light shadow rays and the random rays),
+   and kernel 5 on the entry-face tie set of tests/torch_port_arrays.py
+   at 4,096 rays and list caps LIST_CAP and 0 (row 5 on every ray); then
+   kernels 5 and 8 over the dungeon's clusters from its BVH's leaf boxes
+   against its tight clusters on its primaries (tri equal on every ray).
+   Then (phase 5m) the dungeon's GI-only oracle of
+   tests/test_dungeon_oracle.py through the port, counted, at 40x24 and
+   at 800x608: 36 GI-only frames less the emissive-only frame against 48
+   depth-1 less depth-0 reference samples with the sky, the relative
+   difference of the cropped means and the 4x-downsampled correlation
+   printed (measurements; only a non-finite image fails). Then (phase
+   5n) stress_large's soup at 1,048,576 triangles (4,096 clusters, the
+   native BVH, its build timed) at 512x512: as the 262,144-triangle soup
+   of 5k, and kernels 5 and 6 also on every warp of its primaries and
+   light shadow rays whose list overflows LIST_CAP (whole warps, in
+   order: the overflow path at a real size; outputs and test counts
+   bit-equal to the plain versions'), then kernels 5 and 8 over its
+   leaf-box clusters against its tight ones on its primaries.
 6. Times each kernel and its plain version with CUDA events, the
    reference-mode paths in ms/frame and Mrays/s, and the realtime frames
    in ms/frame, per stage, and under the profiler; kernels A and B also
@@ -726,6 +748,18 @@ def doubled(rows):
     return torch.cat([rows, rows]).contiguous()
 
 
+def doubled_clusters(scene):
+    """The scene's [T', 28] rows twice over and their clusters, cut anew
+    from the rows: (rows, [K, 8] cluster rows)."""
+    from strolle_tpu_torch.ops.kernels.cluster_kernels import clusterize_bvh
+    from strolle_tpu_torch.ops.trace import packed_geom_rows
+
+    rows = doubled(packed_geom_rows(scene))
+    v0 = rows[:, 0:3]
+    return rows, clusterize_bvh(None, rows.shape[0], torch.stack(
+        [v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]], dim=1)).contiguous()
+
+
 def tie_rows(rows, winners, count: int = 256):
     """``rows`` with copies of ``count`` of the rows that ``winners`` holds:
     each in another slice of its own 1024-row tile of kernel A (the row
@@ -1109,6 +1143,133 @@ def compare_stream_overflow(scene, sets: dict, device) -> dict:
     return walks
 
 
+#: Rays of the entry-face tie set (whole warps).
+ENTRY_FACE_RAYS = 4096
+
+
+def entry_face_ties(device, n: int = ENTRY_FACE_RAYS):
+    """The entry-face tie set of tests/torch_port_arrays.py
+    (``tie_scene_on_entry_face``, the same seeds, ``n`` rays): two clusters
+    that both hold one triangle T (rows 5 and 263) in the plane x = c,
+    cluster 0's box beginning at x = c, and rays from x = -3 toward points
+    inside T, which meet cluster 1 (row 263) first. Returns (cluster rows,
+    [512, 28] rows, o, d)."""
+    from strolle_tpu_torch.ops.kernels.cluster_kernels import CLUSTER_TRIS, clusterize_bvh
+
+    rs = np.random.RandomState(6)
+    c = np.float32(rs.uniform(0.2, 0.6))
+    yz = rs.uniform(-0.6, 0.6, (3, 2)).astype(np.float32)
+    tri = np.concatenate([np.full((3, 1), c, np.float32), yz], axis=1)
+    rs = np.random.RandomState(3)
+    small = rs.uniform(0.0, 0.2, (2 * CLUSTER_TRIS, 3, 3)).astype(np.float32)
+    pos = np.empty_like(small)
+    pos[:256] = small[:256] + rs.uniform([10, -1, -1], [12, 1, 1], (256, 1, 3))
+    pos[256:] = small[256:] + rs.uniform([-2.5, 3, -1], [-0.7, 5, 1], (256, 1, 3))
+    pos[0] = small[0] + np.array([c, 5.0, 0.0], np.float32)
+    pos[5] = pos[263] = tri
+    positions = torch.tensor(pos, device=device)
+    rows = torch.cat([positions[:, 0], positions[:, 1] - positions[:, 0],
+                      positions[:, 2] - positions[:, 0],
+                      torch.zeros((pos.shape[0], 19), device=device)], dim=-1).contiguous()
+    rs = np.random.RandomState(4)
+    o = np.stack([np.full(n, -3.0), rs.uniform(-0.2, 0.2, n), rs.uniform(-0.2, 0.2, n)], -1)
+    aim = rs.dirichlet([1.0, 1.0, 1.0], n).astype(np.float32) @ tri - o
+    d = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    return (clusterize_bvh(None, pos.shape[0], positions).contiguous(), rows,
+            torch.tensor(o.astype(np.float32), device=device),
+            torch.tensor(d.astype(np.float32), device=device))
+
+
+def compare_stream_ties(scene, sets: dict, device) -> float:
+    """Kernels 5 and 6 on tie sets, against their plain versions. The
+    dungeon's rows twice over, clustered anew: every hit ties with its
+    copy, and kernel 5 must give the plain version's outputs on every ray
+    (primaries, random rays) with every hit on the first copy; kernel 6
+    (light shadow rays, random rays) the plain version's flags. The
+    entry-face set: the lower copy on the face through which the rays
+    enter the cluster walked second; row 5 must win on every ray. Returns
+    kernel 5's max abs error."""
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    rows, clus = doubled_clusters(scene)
+    subs = sk.sub_aabbs(clus, rows).contiguous()
+    err = 0.0
+    for name, anyhit in (("primary", False), ("random", False), ("lights", True),
+                         ("random", True)):
+        o, d, t_max = sets[name]
+        cap = (sk.clipped_t_max(clus, o, d, t_max) if anyhit
+               else sk.scene_tcap(clus, o, d)).contiguous()
+        x = dict(clus=clus, subs=subs, rows=rows, o=o, d=d, cap=cap)
+        got, want = stream_launch(x, anyhit), stream_plain(x, anyhit)
+        torch.cuda.synchronize()
+        n = o.numel() // 3
+        k = "6" if anyhit else "5"
+        what = (f"kernel {k} on ties ({name}, the dungeon's rows twice over, "
+                f"{clus.shape[0]} clusters)")
+        mism, e = stream_mismatch(got, want, anyhit, what)
+        if anyhit:
+            print(f"{what} vs plain: rays differing {mism}", flush=True)
+            check(mism <= 1e-5 * n, f"{what}: {mism} rays differ from the plain version")
+            continue
+        # once a ray has a hit its box tests take best t times TIE_REACH,
+        # so the first copy's sub-block is entered even where the copy lies
+        # on its box face and the slab's t_near rounds past its t
+        hit = got[1] >= 0
+        lower = int((got[1][hit] < rows.shape[0] // 2).sum())
+        bits = sum(int((a != b).sum()) for a, b in zip(got, want))
+        print(f"{what} vs plain: rays differing {mism}, values differing {bits}, max err "
+              f"{e:.3g}; {lower} of {int(hit.sum())} hits on the first copy", flush=True)
+        check(bits == 0, f"{what}: {mism} rays differ from the plain version")
+        check(lower == int(hit.sum()) > 0, f"{what}: {int(hit.sum()) - lower} hits on the "
+              f"second copy")
+        err = max(err, e)
+    clus, rows, o, d = entry_face_ties(device)
+    x = dict(clus=clus, subs=sk.sub_aabbs(clus, rows).contiguous(), rows=rows, o=o, d=d,
+             cap=sk.scene_tcap(clus, o, d).contiguous())
+    for cap in (sk.LIST_CAP, 0):
+        got, want = stream_launch(x, False, list_cap=cap), stream_plain(x, False, list_cap=cap)
+        torch.cuda.synchronize()
+        what = f"kernel 5 on the entry-face tie set ({o.shape[0]} rays, list cap {cap})"
+        bits = sum(int((a != b).sum()) for a, b in zip(got, want))
+        row5 = int((got[1] == 5).sum())
+        print(f"{what} vs plain: values differing {bits}; row 5 won on {row5} rays", flush=True)
+        check(bits == 0, f"{what}: {bits} values differ from the plain version")
+        check(row5 == o.shape[0], f"{what}: row 5 lost on {o.shape[0] - row5} rays")
+    return err
+
+
+def hold_leaf_clusters(scene, o, d, label: str) -> dict:
+    """Kernels 5 and 8 over clusters from the BVH's leaf boxes
+    (``clusterize_bvh`` without positions) against the scene's tight
+    clusters, on rays o/d: tri equal on every ray (looser boxes only add
+    tests, and ties go to the lowest row either way). Counts the clusters
+    whose leaf box is looser than the tight one."""
+    from strolle_tpu_torch.ops.kernels import cluster_kernels as ck
+    from strolle_tpu_torch.ops.kernels import stream_kernels as sk
+
+    leaf = ck.clusterize_bvh(scene.bvh, scene.geometry.num_triangles).contiguous()
+    tight = scene.clusters
+    check(bool((leaf[:, 0:3] <= tight[:, 0:3]).all() and (leaf[:, 3:6] >= tight[:, 3:6]).all()),
+          f"{label}: leaf-box clusters do not hold the tight clusters")
+    out = {"rays": o.numel() // 3, "clusters": leaf.shape[0],
+           "looser_clusters": int(((leaf[:, 0:6] != tight[:, 0:6]).any(-1)).sum())}
+    x5 = stream_inputs(scene, o, d)
+    # the sub-block boxes come from the rows alone: only the cap changes
+    x5_leaf = dict(x5, clus=leaf, cap=sk.scene_tcap(leaf, o, d).contiguous())
+    x8 = walk_inputs(scene, "8", o, d)
+    for key, (a, b) in (("5", (stream_launch(x5, False), stream_launch(x5_leaf, False))),
+                        ("8", (walk_launch(x8), walk_launch(dict(x8, table=leaf))))):
+        torch.cuda.synchronize()
+        mism = int((a[1] != b[1]).sum())
+        out[key] = {"tri_mismatches": mism, "hits": int((a[1] >= 0).sum())}
+        check(mism == 0, f"{label}: kernel {key} over leaf-box clusters: tri differs on {mism} "
+              f"rays")
+        check(out[key]["hits"] > 0, f"{label}: kernel {key} over leaf-box clusters: no hit")
+    print(f"kernels 5 and 8 over the {label}'s leaf-box clusters against its tight clusters: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def drive_flat_dungeon(flat, scene, luts, device) -> dict:
     """One reference sample (trace_sample, depth DEPTH, the sky) of the
     dungeon without its BVH at FLAT_WIDTH x FLAT_HEIGHT, with the counts
@@ -1463,12 +1624,7 @@ def compare_cluster_walks(scene, sets: dict, device) -> dict:
     check(primary["front_to_back"][1] < primary["index_order"][1],
           "kernel 8: the front-to-back walk tests no fewer triangles per primary")
 
-    from strolle_tpu_torch.ops.trace import packed_geom_rows
-
-    rows = doubled(packed_geom_rows(scene))
-    v0 = rows[:, 0:3]
-    table = ck.clusterize_bvh(None, rows.shape[0], torch.stack(
-        [v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]], dim=1)).contiguous()
+    rows, table = doubled_clusters(scene)
     for name, key in (("primary", "8"), ("random", "8"), ("lights", "9"), ("random", "9")):
         o, d, t_max = sets[name]
         x = dict(walk_inputs(scene, key, o, d, t_max), table=table, rows=rows)
@@ -3541,53 +3697,115 @@ def example_runs() -> list:
     ]
 
 
-def hold_stress_large(scene, cam, device) -> dict:
-    """Kernels 5 and 6 against their plain versions on stress_large's
-    262,144 triangles: STRESS_SUBSET_ROWS seeded image rows of its
-    primaries and of their bounce-0 shadow rays toward the lights; and
-    the share of warps whose cluster lists overflow LIST_CAP, on the
-    subset and over every primary."""
+def hold_stress_large(scene, cam, device, label: str = "stress_large") -> dict:
+    """Kernels 5 and 6 against their plain versions on a stress_large soup:
+    STRESS_SUBSET_ROWS seeded image rows of its primaries and of their
+    bounce-0 shadow rays toward the lights; the warps whose cluster lists
+    overflow LIST_CAP and the longest list, on the subset and over every
+    primary and light shadow ray; and each kernel's ms on every ray."""
     from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 
     po, pd, so, sd, slen = bounce0_shadow_rays(scene, cam, SEED)
     rows = torch.tensor(np.sort(np.random.RandomState(5).choice(
         cam.height, STRESS_SUBSET_ROWS, replace=False)), device=device)
     t0 = time.perf_counter()
-    out = {"rows": STRESS_SUBSET_ROWS, "rays": STRESS_SUBSET_ROWS * cam.width}
+    out = {"triangles": scene.geometry.num_triangles, "clusters": scene.clusters.shape[0],
+           "rows": STRESS_SUBSET_ROWS, "rays": STRESS_SUBSET_ROWS * cam.width}
     for name, anyhit, (o, d, t_max) in (("primary", False, (po, pd, None)),
                                         ("lights", True, (so, sd, slen))):
+        k = "6" if anyhit else "5"
+        x = stream_inputs(scene, o, d, t_max)
+        ms = time_ms(lambda: stream_launch(x, anyhit))
         o, d = o[rows].contiguous(), d[rows].contiguous()
         t_max = None if t_max is None else t_max[rows].contiguous()
         x = stream_inputs(scene, o, d, t_max)
         got = stream_launch(x, anyhit)
         want = stream_plain(x, anyhit)
         torch.cuda.synchronize()
-        k = "6" if anyhit else "5"
-        what = f"kernel {k} (stress_large {name}, {o.numel() // 3} rays)"
+        what = f"kernel {k} ({label} {name}, {o.numel() // 3} rays)"
         mism, e = stream_mismatch(got, want, anyhit, what)
         check(mism == 0, f"{what}: {mism} rays differ from the plain version")
         _, _, count = sk.warp_lists(x["clus"], x["o"].reshape(-1, 3), x["d"].reshape(-1, 3),
                                     x["cap"].reshape(-1))
         out[name] = {"mismatches": mism, "max_abs_err": e, "warps": count.numel(),
                      "warps_overflowing": int((count > sk.LIST_CAP).sum()),
+                     "most_clusters_a_warp": int(count.max()), f"kernel_{k}_ms_all_rays": ms}
+    # every warp of the frame's primaries and light shadow rays, in chunks
+    # of whole warps; then kernels 5 and 6 on the warps that overflow, as
+    # whole warps in their order: the overflow path at this size
+    for name, anyhit, (o, d, t_max) in (("all_primaries", False, (po, pd, None)),
+                                        ("all_light_shadow_rays", True, (so, sd, slen))):
+        fo, fd = o.reshape(-1, 3), d.reshape(-1, 3)
+        ft = None if t_max is None else t_max.reshape(-1)
+        counts = []
+        for i in range(0, fo.shape[0], 32768):
+            o_, d_ = fo[i:i + 32768].contiguous(), fd[i:i + 32768].contiguous()
+            cap = (sk.scene_tcap(scene.clusters, o_, d_) if ft is None
+                   else sk.clipped_t_max(scene.clusters, o_, d_, ft[i:i + 32768]))
+            counts.append(sk.warp_lists(scene.clusters, o_, d_, cap)[2])
+        count = torch.cat(counts)
+        over = (count > sk.LIST_CAP).nonzero()[:, 0]
+        out[name] = {"warps": count.numel(), "warps_overflowing": over.numel(),
                      "most_clusters_a_warp": int(count.max())}
-    # every primary warp of the frame, in chunks
-    over = warps = most = 0
-    fo, fd = po.reshape(-1, 3), pd.reshape(-1, 3)
-    for i in range(0, fo.shape[0], 32768):
-        o, d = fo[i:i + 32768].contiguous(), fd[i:i + 32768].contiguous()
-        cap = sk.scene_tcap(scene.clusters, o, d)
-        _, _, count = sk.warp_lists(scene.clusters, o, d, cap)
-        over += int((count > sk.LIST_CAP).sum())
-        warps += count.numel()
-        most = max(most, int(count.max()))
-    out["all_primaries"] = {"warps": warps, "warps_overflowing": over,
-                            "most_clusters_a_warp": most}
+        if over.numel() == 0:
+            continue
+        rays = (over[:, None] * sk.TILE_RAYS + torch.arange(sk.TILE_RAYS, device=device)).ravel()
+        rays = rays[rays < fo.shape[0]]
+        x = stream_inputs(scene, fo[rays].contiguous(), fd[rays].contiguous(),
+                          None if ft is None else ft[rays].contiguous())
+        n = rays.numel()
+        work = torch.zeros((n, 2), dtype=torch.int32, device=device)
+        pwork = torch.zeros_like(work)
+        got = stream_launch(x, anyhit, work)
+        want = stream_plain(x, anyhit, pwork)
+        torch.cuda.synchronize()
+        k = "6" if anyhit else "5"
+        what = f"kernel {k} ({label}, the {over.numel()} overflowing warps of {name})"
+        mism, e = stream_mismatch(got, want, anyhit, what)
+        bits = sum(int((a != b).sum()) for a, b in zip(got, want))
+        wmism = int((work != pwork).any(-1).sum())
+        _, _, sub = sk.warp_lists(x["clus"], x["o"], x["d"], x["cap"])
+        print(f"{what} vs plain: values differing {bits}, work mismatches {wmism}, warps "
+              f"overflowing {int((sub > sk.LIST_CAP).sum())} of {sub.numel()}", flush=True)
+        check(bits == 0 and wmism == 0, f"{what}: differs from the plain version")
+        check(bool((sub > sk.LIST_CAP).all()), f"{what}: a warp does not overflow")
+        out[name]["overflow_held"] = {"rays": n, "mismatches": mism, "max_abs_err": e,
+                                      "box_tests_per_ray": int(work[:, 0].sum()) / n,
+                                      "triangle_tests_per_ray": int(work[:, 1].sum()) / n}
     out["check_s"] = time.perf_counter() - t0
-    print(f"stress_large: kernels 5 and 6 against their plain versions {json.dumps(out)}"
-          + ("" if over or out["primary"]["warps_overflowing"] or out["lights"]["warps_overflowing"]
-             else f"; no warp overflows LIST_CAP = {sk.LIST_CAP}"), flush=True)
+    overflowing = sum(out[k]["warps_overflowing"] for k in
+                      ("primary", "lights", "all_primaries", "all_light_shadow_rays"))
+    print(f"{label}: kernels 5 and 6 against their plain versions {json.dumps(out)}"
+          + ("" if overflowing else f"; no warp overflows LIST_CAP = {sk.LIST_CAP}"), flush=True)
     return out
+
+
+#: The soup of the JAX package's own 1M-triangle runs: stress_large's
+#: seeded soup at 1,048,576 triangles (4,096 clusters) at 512x512.
+LARGE_SOUP_TRIS = 1048576
+LARGE_SOUP_SIZE = (512, 512)
+
+
+def drive_large_soup(device) -> dict:
+    """Phase 5n: stress_large's soup at LARGE_SOUP_TRIS triangles with the
+    native BVH (its build timed): kernels 5 and 6 held on it and its
+    warps' lists counted (``hold_stress_large``); then kernels 5 and 8
+    over its leaf-box clusters on its primaries (``hold_leaf_clusters``).
+    Returns both results."""
+    from strolle_tpu_torch.camera import pixel_rays, screen_grid
+    from strolle_tpu_torch.examples.stress_large import scene_and_camera
+
+    t0 = time.perf_counter()
+    scene, cam, bvh_s = scene_and_camera(LARGE_SOUP_TRIS, *LARGE_SOUP_SIZE, device)
+    setup_s = time.perf_counter() - t0
+    check(scene.clusters.shape[0] == LARGE_SOUP_TRIS // 256, "1M soup: cluster count")
+    print(f"soup of {LARGE_SOUP_TRIS} triangles: BVH built in {bvh_s:.2f} s, scene with its "
+          f"{scene.clusters.shape[0]} clusters in {setup_s:.2f} s", flush=True)
+    label = f"soup of {LARGE_SOUP_TRIS} triangles"
+    out = hold_stress_large(scene, cam, device, label)
+    o, d = pixel_rays(cam, screen_grid(cam))
+    return ({"bvh_build_s": bvh_s, "setup_s": setup_s, **out},
+            hold_leaf_clusters(scene, o.contiguous(), d.contiguous(), label))
 
 
 def drive_examples(device) -> dict:
@@ -3633,6 +3851,61 @@ def drive_examples(device) -> dict:
                   "stress_large: not 262,144 triangles in 1,024 clusters under 'stream'")
     info["stress_large_hold"] = hold_stress_large(large["scene"], large["camera"], device)
     return {"launches": total, "info": info}
+
+
+#: The dungeon's GI-only oracle (tests/test_dungeon_oracle.py:125-190):
+#: GI-only frames averaged, the emissive-only frame's seed, the depth-1
+#: minus depth-0 reference's samples, the crop a side and the downsampling
+#: of the correlation, at the test's size and at the headline size.
+ORACLE_FRAMES = 36
+ORACLE_REF_SAMPLES = 48
+ORACLE_CROP = 3
+ORACLE_DOWNSAMPLE = 4
+ORACLE_SIZES = ((40, 24), (WIDTH, HEIGHT))
+
+
+def gi_oracle(scene, cam, luts) -> dict:
+    """The GI-only realtime frame's one-bounce indirect light against the
+    reference tracer's: the mean of ORACLE_FRAMES GI-only frames (seeds
+    11 f + 5, no DI, no denoiser) less the emissive-only frame (seed 1),
+    against the mean of ORACLE_REF_SAMPLES depth-1 less depth-0 samples
+    with the sky, cropped ORACLE_CROP pixels a side: the relative
+    difference of their means and the correlation at ORACLE_DOWNSAMPLE x
+    downsampling, as the JAX test computes them (measurements; no pass
+    mark). Every image must be finite."""
+    from strolle_tpu_torch.models.reference import trace_sample
+    from strolle_tpu_torch.models.restir import RenderConfig, init_state, render_frame
+
+    cfg = RenderConfig(denoise=False, needs_di=False, needs_gi=True)
+    state = init_state(cam, device=cam.device)
+    acc = None
+    for f in range(ORACLE_FRAMES):
+        ch, state = render_frame(scene, cam, state, 11 * f + 5, cfg, luts)
+        check(bool(torch.isfinite(ch["image"]).all()), f"GI-only frame {f}: image not finite")
+        acc = ch["image"] if acc is None else acc + ch["image"]
+    cfg0 = RenderConfig(denoise=False, needs_di=False, needs_gi=False)
+    ch0, _ = render_frame(scene, cam, init_state(cam, device=cam.device), 1, cfg0, luts)
+    restir = (acc / ORACLE_FRAMES - ch0["image"]).double()
+    d1 = d0 = 0.0
+    for s in range(ORACLE_REF_SAMPLES):
+        d1 = d1 + trace_sample(scene, cam, s, depth=1, include_sky=True, luts=luts).double()
+        d0 = d0 + trace_sample(scene, cam, s, depth=0, include_sky=True, luts=luts).double()
+    oracle = (d1 - d0) / ORACLE_REF_SAMPLES
+    c = ORACLE_CROP
+    r = restir[c:-c, c:-c].cpu().numpy()
+    g = oracle[c:-c, c:-c].cpu().numpy()
+    check(bool(np.isfinite(r).all() and np.isfinite(g).all()), "GI oracle: non-finite image")
+    k = ORACLE_DOWNSAMPLE
+    hh, ww = r.shape[0] // k * k, r.shape[1] // k * k
+
+    def ds(a):
+        return a[:hh, :ww].reshape(hh // k, k, ww // k, k, 3).mean(axis=(1, 3))
+
+    return {"size": [cam.width, cam.height], "restir_indirect_mean": float(r.mean()),
+            "oracle_indirect_mean": float(g.mean()),
+            "rel_mean_diff": float(abs(r.mean() - g.mean()) / g.mean()),
+            "signed_rel_mean_diff": float((r.mean() - g.mean()) / g.mean()),
+            "corr_downsampled": float(np.corrcoef(ds(r).ravel(), ds(g).ravel())[0, 1])}
 
 
 T_START = time.perf_counter()
@@ -3937,6 +4210,24 @@ def main() -> int:
     phase("5k")
     examples = drive_examples(device)
 
+    # --- 5l. kernel 5's ties, leaf-box clusters; 5m. the GI-only oracle;
+    # 5n. the 1M-triangle soup ---------------------------------------------
+    phase("5l")
+    err["5"] = max(err["5"], compare_stream_ties(dg, ssets, device))
+    leaf_info = {"dungeon": hold_leaf_clusters(dg, *ssets["primary"][:2], "dungeon")}
+    phase("5m")
+    oracle, oracle_launches = {}, {}
+    for w, h in ORACLE_SIZES:
+        ocam = dungeon_camera(w, h, device=device)
+        key = f"{w}x{h}"
+        oracle[key], oracle[key + "_ms"] = counted(lambda: gi_oracle(dg, ocam, dluts),
+                                                   oracle_launches, key)
+        print(f"dungeon GI-only oracle at {key} ({ORACLE_FRAMES} frames, {ORACLE_REF_SAMPLES} "
+              f"reference samples; the JAX test's bound on rel_mean_diff is 0.15): "
+              f"{json.dumps(oracle[key])}, launches {oracle_launches[key]}", flush=True)
+    phase("5n")
+    large_soup, leaf_info["large_soup"] = drive_large_soup(device)
+
     # --- 6. timings -----------------------------------------------------
     phase("6")
     # the torch BVH traversal on the card: trace_closest's route under
@@ -4178,16 +4469,20 @@ def main() -> int:
         "engine": engine["info"],
         "multi_device": multi["info"],
         "examples": examples["info"],
+        "leaf_box_clusters": leaf_info,
+        "dungeon_gi_oracle": oracle,
+        "large_soup": large_soup,
         "total_s": time.perf_counter() - T_START,
     }
     print("timings: " + json.dumps(timings), flush=True)
 
     # the launches of the differentiable, alpha, engine, multi-device and
-    # example phases (5f-5k)
+    # example phases and of the GI-only oracle (5f-5k, 5m)
     new_path_launches = collections.Counter()
     alpha_counts = [v for k, v in alpha_info.items() if not k.endswith("_ms")]
     for counts in (train_info["launches"], restir_train_info["launches"], *alpha_counts,
-                   engine["launches"], multi["launches"], examples["launches"]):
+                   engine["launches"], multi["launches"], examples["launches"],
+                   *oracle_launches.values()):
         new_path_launches.update(counts)
     kernels = [
         {

@@ -113,6 +113,20 @@ def pixel_rays(camera: Camera, pixels_xy: torch.Tensor):
     return near, vm.normalize(far - near)
 
 
+def primary_rays(camera: Camera, rows=None):
+    """All primary rays: (origins, dirs) [H, W, 3]; of the block's rows
+    only where ``rows`` (a ``parallel.rows.RowBlock``) is given."""
+    return pixel_rays(camera, screen_grid(camera, rows))
+
+
+def world_to_clip(camera: Camera, pos: torch.Tensor) -> torch.Tensor:
+    """World points [..., 3] -> clip coordinates [..., 4] (w = 1 in)."""
+    m = camera.projection_view
+    x, y, z = pos[..., 0], pos[..., 1], pos[..., 2]
+    return torch.stack([m[i, 0] * x + m[i, 1] * y + m[i, 2] * z + m[i, 3] for i in range(4)],
+                       dim=-1)
+
+
 def world_to_screen_xy(camera: Camera, pos: torch.Tensor):
     """World point -> screen pixel coords as separate (x, y) planes."""
     m = camera.projection_view
@@ -125,6 +139,11 @@ def world_to_screen_xy(camera: Camera, pos: torch.Tensor):
     sx = (0.5 * ndc_x + 0.5) * camera.width
     sy = (0.5 * ndc_y + 0.5) * camera.height
     return sx, sy
+
+
+def world_to_screen(camera: Camera, pos: torch.Tensor) -> torch.Tensor:
+    """World points [..., 3] -> screen pixel coords [..., 2] (x, y)."""
+    return torch.stack(world_to_screen_xy(camera, pos), dim=-1)
 
 
 def screen_xy(camera: Camera, rows=None):

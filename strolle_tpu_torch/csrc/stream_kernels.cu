@@ -24,8 +24,11 @@
 //
 // Kernel 5 keeps a hit when (t, row) < (best t, best row): among exact
 // ties the lowest row wins in whatever order the clusters are walked, and
-// a hit at exactly tcap with no earlier hit stays a miss. Kernel 6 leaves
-// a lane at its first hit.
+// a hit at exactly tcap with no earlier hit stays a miss. Once a lane has
+// a hit, its box tests and the stop take best t * (1 + 2^-18) (kTieReach,
+// as kernel 8's): a slab's t_near can round past the t of a triangle on
+// the face the ray enters by, and the box of a tie's lower row must still
+// be entered. Kernel 6 leaves a lane at its first hit.
 //
 // What bounds them on this card: operations. A slab test is ~25 fp32
 // operations and a ray-triangle test 24 to u and 22 more where u passes,
@@ -82,12 +85,13 @@ constexpr int kThreads = strolle::kWalkThreads;
 // the lanes costs a round of shuffles per entered ray: on the dungeon's
 // primaries, where most lanes enter the same sub-blocks, kernel 5 then
 // took 0.91-0.93 ms against 0.55 staged (H100 80GB HBM3 at 700 W,
-// stream_turns.py).
+// stream_turns.py). The tie reach is kernel 5's; kernel 6's box tests
+// take t_max (warp_walk.cuh, reach).
 template <bool kAnyHit>
 struct StreamWalk {
   static constexpr bool kAny = kAnyHit;
   static constexpr bool kSubBlocks = true;
-  static constexpr bool kTieReach = false;
+  static constexpr bool kTieReach = true;
   static constexpr int kAcross = 24;
 };
 

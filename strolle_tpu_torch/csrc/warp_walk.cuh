@@ -42,9 +42,10 @@
 // miss. The lowest row must also be tested: a cluster is entered where
 // the slab's t_near <= the bound, and t_near of a box whose face holds the
 // winning triangle can round past the triangle's t (up to 3 ulps on the
-// dungeon's rows twice over). With kTieReach the re-tests and the stop
-// take best t * (1 + 2^-18), so such a cluster is still entered (kernel
-// 8; kernel 5 keeps best t).
+// dungeon's rows twice over). With kTieReach (kernels 5 and 8) the
+// re-tests and the stop take best t * (1 + 2^-18) once a lane has a hit,
+// so such a cluster is still entered; a lane with no hit keeps its
+// starting bound (5: tcap; 8: +inf).
 //
 // Why per-warp culling computes the TPU kernel's function: the TPU kernel
 // enters a cluster when ANY ray of its tile passes the slab test against
@@ -221,13 +222,13 @@ __device__ __forceinline__ Lane start_lane(const float* __restrict__ o,
 }
 
 // The bound a lane's box tests take: its best t (raised by kTieReach
-// where K asks for it) or t_max.
+// where K asks for it and the lane has a hit) or t_max.
 template <class K>
 __device__ __forceinline__ float reach(const Lane& l) {
   if constexpr (K::kAny) {
     return l.tm;
   } else if constexpr (K::kTieReach) {
-    return l.best.t * kTieReach;
+    return l.best.tri >= 0 ? l.best.t * kTieReach : l.best.t;
   } else {
     return l.best.t;
   }

@@ -33,38 +33,26 @@ def soup(n: int):
     return verts, nrm
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description="strolle_tpu_torch example: stress_large")
-    ap.add_argument("--tris", type=int, default=262144)
-    ap.add_argument("--frames", type=int, default=16)
-    ap.add_argument("--width", type=int, default=512)
-    ap.add_argument("--height", type=int, default=512)
-    ap.add_argument("--out", default=os.path.join("out", "stress_large"))
-    ap.add_argument("--cpu", action="store_true")
-    args = ap.parse_args(argv)
-    device = device_of(args.cpu)
-
+def scene_and_camera(n: int, width: int, height: int, device):
+    """The soup of ``n`` triangles as a Scene in BVH order (the native
+    builder's BVH and its clusters), two lights, no sky, and the example's
+    camera: (scene, camera, BVH build seconds)."""
     import numpy as np
     import torch
 
     from ..bvh import build_clusters
     from ..bvh.builder import build_bvh
     from ..camera import make_camera
-    from ..device import resolve_device
-    from ..models.restir import RenderConfig, init_state, render_frame
-    from ..ops import trace
     from ..scene.types import (Geometry, Scene, compute_static_flags, make_lights,
                                make_materials)
 
-    dev = resolve_device(device)
-    n = args.tris
     verts, nrm = soup(n)
     t0 = time.perf_counter()
-    arrays, order = build_bvh(verts, dev)
+    arrays, order = build_bvh(verts, device)
     bvh_s = time.perf_counter() - t0
 
     def t(a, dtype=torch.float32):
-        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     geom = Geometry(
         positions=t(verts[order]),
@@ -79,7 +67,7 @@ def main(argv=None) -> dict:
             {"base_color": [0.8, 0.3, 0.2, 1]},
             {"base_color": [0.2, 0.5, 0.8, 1]},
         ],
-        device=dev,
+        device=device,
     )
     scene = Scene(
         geometry=geom,
@@ -89,7 +77,7 @@ def main(argv=None) -> dict:
                 {"pos": [0, 30, 0], "color": [900, 900, 900], "radius": 2.0},
                 {"pos": [15, 12, 15], "color": [400, 350, 250], "radius": 1.0},
             ],
-            device=dev,
+            device=device,
         ),
         atlas=None,
         sun_azimuth=0.0,
@@ -98,10 +86,29 @@ def main(argv=None) -> dict:
         **compute_static_flags(geom, materials),
     )
     scene = scene.replace(clusters=build_clusters(scene))
-    camera = make_camera(
-        eye=[28, 14, 28], target=[0, 2, 0],
-        width=args.width, height=args.height, device=dev,
-    )
+    camera = make_camera(eye=[28, 14, 28], target=[0, 2, 0], width=width, height=height,
+                         device=device)
+    return scene, camera, bvh_s
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description="strolle_tpu_torch example: stress_large")
+    ap.add_argument("--tris", type=int, default=262144)
+    ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--width", type=int, default=512)
+    ap.add_argument("--height", type=int, default=512)
+    ap.add_argument("--out", default=os.path.join("out", "stress_large"))
+    ap.add_argument("--cpu", action="store_true")
+    args = ap.parse_args(argv)
+    device = device_of(args.cpu)
+
+    from ..device import resolve_device
+    from ..models.restir import RenderConfig, init_state, render_frame
+    from ..ops import trace
+
+    dev = resolve_device(device)
+    n = args.tris
+    scene, camera, bvh_s = scene_and_camera(n, args.width, args.height, dev)
 
     stream = trace.is_big(scene) and trace.BIG_SCENE_STRATEGY == "stream"
     clusters = 0 if scene.clusters is None else scene.clusters.shape[0]

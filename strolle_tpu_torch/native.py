@@ -110,6 +110,16 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the host library builds and loads here (``library``
+    raises where it does not)."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _node_buffers(t: int):
     max_nodes = max(2 * t, 16)
     return (

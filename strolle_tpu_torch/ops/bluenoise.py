@@ -52,6 +52,17 @@ def texture(device) -> torch.Tensor:
     return torch.as_tensor(table_numpy(), device=torch.device(device))
 
 
+def sample_pair(grid_xy: torch.Tensor, frame: int):
+    """(first [..., 2], second [..., 2]): blue-noise pairs at integer pixel
+    coords ``grid_xy`` [..., 2] (global rows, as ``screen_grid`` gives
+    them), with the per-frame (71, 11) scroll."""
+    frame = int(frame)
+    u = (grid_xy[..., 0].long() + 71 * frame) % SIZE
+    v = (grid_xy[..., 1].long() + 11 * frame) % SIZE
+    texel = texture(str(grid_xy.device))[v, u]
+    return texel[..., 0:2], texel[..., 2:4]
+
+
 def sample_pair_screen(h: int, w: int, frame: int, device, y0: int = 0):
     """Blue-noise pairs for ``h`` screen rows from row ``y0`` (the whole
     screen by default), pixel (x, y) = (col, row): four [h, w] planes

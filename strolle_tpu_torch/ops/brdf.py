@@ -23,6 +23,13 @@ def diffuse_eval(base_color, metallic):
     return base_color[..., :3] * ((1.0 - metallic) / math.pi)[..., None]
 
 
+def diffuse_sample(state, normal):
+    """(state, dir, pdf): a hemisphere sample around ``normal`` [..., 3]
+    with the reference's pdf of 1/pi."""
+    state, d = rng.sample_hemisphere(state, normal)
+    return state, d, torch.full(normal.shape[:-1], 1.0 / math.pi, device=normal.device)
+
+
 def ggx_distribution(n_dot_h, a):
     a2 = a * a
     d = (n_dot_h * a2 - n_dot_h) * n_dot_h + 1.0

@@ -46,6 +46,10 @@ def expand(parity: torch.Tensor, half: torch.Tensor, fill=0) -> torch.Tensor:
     return torch.stack([even, odd], dim=2).reshape((h, 2 * w2) + half.shape[2:])
 
 
+def compact_tree(parity, tree):
+    return tree_map(lambda a: compact(parity, a), tree)
+
+
 def expand_tree(parity, tree, fill=0):
     return tree_map(lambda a: expand(parity, a, fill), tree)
 

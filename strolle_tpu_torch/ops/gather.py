@@ -28,9 +28,25 @@ def _take(a: torch.Tensor, flat_idx: torch.Tensor, shape) -> torch.Tensor:
 def gather_at(pos_y, pos_x, *arrays):
     """Several [H, W(, C)] arrays fetched at per-pixel integer coords
     (in bounds; callers clamp)."""
-    w = arrays[0].shape[1]
+    return take_screen(*pack_screen(*arrays), pos_y, pos_x)
+
+
+def pack_screen(*arrays):
+    """[H, W(, C)] arrays as (flat, specs) for ``take_screen``: each array
+    viewed as [H*W(, C)] in its own dtype, and (H, W). The JAX package
+    packs them into one f32 matrix for a single take; here each is
+    indexed on its own, exactly."""
+    h, w = arrays[0].shape[:2]
+    return tuple(a.reshape((h * w,) + a.shape[2:]) for a in arrays), (h, w)
+
+
+def take_screen(flat, specs, pos_y, pos_x):
+    """The arrays that ``pack_screen`` packed, fetched at per-pixel integer
+    coords (in bounds; callers clamp): a list of [*pos_y.shape(, C)] in
+    their dtypes."""
+    _, w = specs
     idx = (pos_y.long() * w + pos_x.long()).reshape(-1)
-    return [_take(a, idx, pos_y.shape) for a in arrays]
+    return [a[idx].reshape(tuple(pos_y.shape) + a.shape[1:]) for a in flat]
 
 
 def gather_tree(tree, pos_y, pos_x):

@@ -20,7 +20,8 @@ distance among them and sorted by (key, cluster) (``warp_lists``); a
 warp that enters more than its list cap walks all of them in index order
 instead (the overflow path). Before each list entry the warp stops once
 the key is past the largest bound of its rays still walking (kernel 8:
-best t times TIE_REACH; kernel 9: t_max). Each walking ray re-tests the
+best t, times TIE_REACH once a ray has a hit, ``tie_bound``; kernel 9:
+t_max). Each walking ray re-tests the
 cluster's box against its own bound and, when it enters, tests the
 cluster's rows [first, min(first + count, T')) in blocks of STAGE_ROWS
 (the TPU kernel reads zero-padded whole clusters instead; a zero row
@@ -57,10 +58,11 @@ TILE_RAYS = 32
 LIST_CAP = 256
 #: Rows tested together: the block a warp stages in shared memory.
 STAGE_ROWS = 32
-#: Kernel 8's box tests take best t times this: a slab's t_near can round
-#: a few ulps past the t of a triangle on the box face the ray enters by
-#: (3 at most on the dungeon's rows twice over), and the cluster of the
-#: lower row of an exact tie must still be entered for that row to win.
+#: The box tests of kernels 5 and 8 take best t times this once a ray has
+#: a hit: a slab's t_near can round a few ulps past the t of a triangle on
+#: the box face the ray enters by (3 at most on the dungeon's rows twice
+#: over), and the cluster of the lower row of an exact tie must still be
+#: entered for that row to win.
 TIE_REACH = 1.0 + 2.0**-18
 
 
@@ -71,32 +73,60 @@ def num_clusters(num_tris: int) -> int:
 def clusterize_bvh(bvh, num_tris: int, positions: torch.Tensor | None = None) -> torch.Tensor:
     """Geometry in BVH order -> [K, 8] rows: bmin(3) bmax(3) first count.
 
-    Cluster k covers rows [k*CLUSTER_TRIS, (k+1)*CLUSTER_TRIS); the rows
-    past the last triangle replicate it, so the last box stays tight.
-    ``positions`` [T, 3, 3] are required: the JAX package's fallback to
-    the BVH's leaf boxes is not ported."""
-    if positions is None:
-        raise NotImplementedError(
-            "clusterize_bvh from the BVH's leaf boxes alone is not ported; pass positions"
-        )
+    Cluster k covers rows [k*CLUSTER_TRIS, (k+1)*CLUSTER_TRIS); with
+    ``positions`` [T, 3, 3] its box is that of its rows (the rows past the
+    last triangle replicate it, so the last box stays tight). Without
+    them it is the union of the BVH's leaf boxes per bin, a leaf that
+    straddles a bin boundary counting in the bins of its first and last
+    rows (``_leaf_boxes``)."""
     k = num_clusters(num_tris)
-    t = positions.shape[0]
-    v = positions.reshape(t, 9)
-    pad = k * CLUSTER_TRIS - t
-    if pad:
-        v = torch.cat([v, v[-1:].expand(pad, 9)])
-    v = v.reshape(k, CLUSTER_TRIS, 3, 3)
-    firsts = torch.arange(k, dtype=torch.int32, device=positions.device) * CLUSTER_TRIS
+    if positions is None:
+        if bvh is None:
+            raise ValueError("clusterize_bvh: pass positions or a BVH")
+        c_min, c_max = _leaf_boxes(bvh, k)
+        device = c_min.device
+    else:
+        t = positions.shape[0]
+        v = positions.reshape(t, 9)
+        pad = k * CLUSTER_TRIS - t
+        if pad:
+            v = torch.cat([v, v[-1:].expand(pad, 9)])
+        v = v.reshape(k, CLUSTER_TRIS, 3, 3)
+        c_min, c_max = v.amin(dim=(1, 2)), v.amax(dim=(1, 2))
+        device = positions.device
+    firsts = torch.arange(k, dtype=torch.int32, device=device) * CLUSTER_TRIS
     counts = torch.clamp(num_tris - firsts, max=CLUSTER_TRIS)
     return torch.cat(
-        [
-            v.amin(dim=(1, 2)),
-            v.amax(dim=(1, 2)),
-            firsts.to(torch.float32)[:, None],
-            counts.to(torch.float32)[:, None],
-        ],
+        [c_min, c_max, firsts.to(torch.float32)[:, None], counts.to(torch.float32)[:, None]],
         dim=-1,
     )
+
+
+#: The fill of the non-leaf children's boxes in ``_leaf_boxes``.
+_BIG = 1e30
+
+
+def _leaf_boxes(bvh, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """([k, 3], [k, 3]): per bin of CLUSTER_TRIS rows, the least corner and
+    the greatest of the leaf boxes whose first or last row lies in it
+    (+inf / -inf for a bin that none reaches), as the JAX package's
+    segment minimum and maximum give them."""
+    child = bvh.child.reshape(-1).to(torch.int64)
+    is_leaf = child < 0
+    first = torch.where(is_leaf, -(child + 1), 0)
+    count = torch.where(is_leaf, bvh.child_count.reshape(-1).to(torch.int64), 0)
+    seg_a = torch.where(is_leaf, first // CLUSTER_TRIS, k)
+    seg_b = torch.where(is_leaf, torch.maximum(first + count - 1, first) // CLUSTER_TRIS, k)
+    leaf = is_leaf[:, None]
+    lo = torch.where(leaf, bvh.child_min.reshape(-1, 3), _BIG)
+    hi = torch.where(leaf, bvh.child_max.reshape(-1, 3), -_BIG)
+    c_min = lo.new_full((k + 1, 3), math.inf)
+    c_max = hi.new_full((k + 1, 3), -math.inf)
+    for seg in (seg_a, seg_b):
+        idx = seg[:, None].expand(-1, 3)
+        c_min.scatter_reduce_(0, idx, lo, "amin")
+        c_max.scatter_reduce_(0, idx, hi, "amax")
+    return c_min[:k], c_max[:k]
 
 
 def by_warp(x: torch.Tensor, fill) -> torch.Tensor:
@@ -126,20 +156,28 @@ def warp_lists(clus_rows, o, d, bound):
     return ids, keys, by_warp(inside, False).any(dim=1).sum(dim=1)
 
 
-def warp_steps(best, walking, ids, keys, count, list_cap, reach: float = 1.0):
+def tie_bound(best, btri) -> torch.Tensor:
+    """The bound of a closest-hit ray's box tests (kernels 5 and 8): its
+    best t, times TIE_REACH where it has a hit. A ray with no hit keeps its
+    starting bound (kernel 5: the scene-box cap; kernel 8: +inf)."""
+    return torch.where(btri >= 0, best * TIE_REACH, best)
+
+
+def warp_steps(bound, walking, ids, keys, count, list_cap):
     """The walk's steps, shared by the plain versions of kernels 5, 6, 8
     and 9: yields (step, the rays whose warp walks this step, the cluster
-    each takes). ``best`` [R] and ``walking`` [R] are read afresh each
-    step (the caller updates them): a warp stops once its list's key is
-    past the largest best t (times ``reach``) of its rays still walking,
-    or, overflowing (more than ``list_cap`` entered), once none walks."""
+    each takes). ``bound()`` [R] (best t or t_max, as the box tests take
+    it) and ``walking`` [R] are read afresh each step (the caller updates
+    them): a warp stops once its list's key is past the largest bound of
+    its rays still walking, or, overflowing (more than ``list_cap``
+    entered), once none walks."""
     n_clusters = ids.shape[1]
     overflow = count > list_cap
     steps = torch.where(overflow, n_clusters, count)
-    warp = torch.arange(best.shape[0], device=best.device) // TILE_RAYS
+    warp = torch.arange(walking.shape[0], device=walking.device) // TILE_RAYS
     on = steps > 0
     for step in range(int(steps.max()) if steps.numel() else 0):
-        mx = by_warp(torch.where(walking, best * reach, -math.inf), -math.inf).amax(dim=1)
+        mx = by_warp(torch.where(walking, bound(), -math.inf), -math.inf).amax(dim=1)
         on &= (step < steps) & (mx > -math.inf) & (overflow | (keys[:, step] <= mx))
         if not bool(on.any()):
             break
@@ -207,25 +245,24 @@ def first_hits(hits, ids, t_max, occ, walking, work):
     walking[done] = False
 
 
-def _walk(clus_rows, geom_rows, o, d, best, walking, work, on_rows, list_cap, reach=1.0):
-    """The warp walk both plain versions share. ``best`` [R] times
-    ``reach`` is the slab tests' bound, ``best`` updated in place by
-    ``on_rows(ids, first, last)`` (the rays that entered a cluster, the
-    first row of their block of STAGE_ROWS and the cluster's end), which
-    also clears ``walking`` [R] (the live rays) for rays that leave the
-    walk. ``work`` [R, 2] or [R, 3] (optional) counts box tests and
-    triangle tests (``count_tests``)."""
+def _walk(clus_rows, geom_rows, o, d, bound, walking, work, on_rows, list_cap):
+    """The warp walk both plain versions share. ``bound()`` [R] is the
+    slab tests' bound, read afresh at each test: ``on_rows(ids, first,
+    last)`` (the rays that entered a cluster, the first row of their block
+    of STAGE_ROWS and the cluster's end) lowers it, and clears ``walking``
+    [R] (the live rays) for rays that leave the walk. ``work`` [R, 2] or
+    [R, 3] (optional) counts box tests and triangle tests (``count_tests``)."""
     inv = safe_inv_dir(d)
-    ids, keys, count = warp_lists(clus_rows, o, d, best * reach)
+    ids, keys, count = warp_lists(clus_rows, o, d, bound())
     if work is not None:
         work[walking, 0] += clus_rows.shape[0]
     firsts = clus_rows[:, 6].to(torch.int64)
     lasts = torch.clamp(firsts + clus_rows[:, 7].to(torch.int64), max=geom_rows.shape[0])
-    for rays, k in warp_steps(best, walking, ids, keys, count, list_cap, reach):
+    for rays, k in warp_steps(bound, walking, ids, keys, count, list_cap):
         if work is not None:
             work[rays, 0] += 1
         box = clus_rows[k]
-        inside = slab(box[:, 0:3], box[:, 3:6], o[rays], inv[rays], best[rays] * reach)[0]
+        inside = slab(box[:, 0:3], box[:, 3:6], o[rays], inv[rays], bound()[rays])[0]
         rays, first, last = rays[inside], firsts[k[inside]], lasts[k[inside]]
         while True:
             keep = walking[rays] & (first < last)
@@ -255,8 +292,8 @@ def cluster_trace_surface_plain(clus_rows, geom_rows, o, d, work=None, list_cap=
         count_tests(work, ids, hits[3], hits[4])
         keep_closest(hits, ids, first, best, btri, bu, bv)
 
-    _walk(clus_rows, geom_rows, of, df, best, live_rays(df, best), work, on_rows, list_cap,
-          TIE_REACH)
+    _walk(clus_rows, geom_rows, of, df, lambda: tie_bound(best, btri), live_rays(df, best), work,
+          on_rows, list_cap)
     normal, uv, mat = resolve_winner(geom_rows, df, btri, bu, bv)
     return (best.reshape(batch), btri.reshape(batch), bu.reshape(batch), bv.reshape(batch),
             normal.reshape(batch + (3,)), uv.reshape(batch + (2,)), mat.reshape(batch))
@@ -277,7 +314,7 @@ def cluster_trace_anyhit_plain(clus_rows, geom_rows, o, d, t_max, work=None, lis
         first_hits(row_hits(geom_rows, of[ids], df[ids], first, last), ids, tm, occ, walking,
                    work)
 
-    _walk(clus_rows, geom_rows, of, df, tm, walking, work, on_rows, list_cap)
+    _walk(clus_rows, geom_rows, of, df, lambda: tm, walking, work, on_rows, list_cap)
     return occ.reshape(batch)
 
 

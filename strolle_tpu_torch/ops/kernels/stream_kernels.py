@@ -22,8 +22,13 @@ against its own best t, then its sub-block boxes in turn, and runs
 Möller-Trumbore over the rows of each sub-block it enters. Closest hit
 keeps a hit on (t, row) < (best t, best row), so among exact ties the
 lowest row wins in any walk order, and a hit at exactly the cap stays a
-miss. The TPU kernels build their lists per (32, 128) ray tile outside
-the kernel; the walk is the same in kind. The CUDA kernels test a
+miss; once a ray has a hit its box tests and the stop take best t times
+TIE_REACH (``tie_bound``), as kernel 8's do, so the box of a tie's lower
+row is entered even where the tie lies on the face the ray enters by.
+The JAX stream kernel keeps the first-walked copy of an exact tie
+instead; the port follows the JAX package's brute and cluster routes.
+The TPU kernels build their lists per (32, 128) ray tile outside the
+kernel; the walk is the same in kind. The CUDA kernels test a
 sub-block that few rays of a warp entered across the warp's lanes, with
 the same results and counts. Each wrapper below runs its plain PyTorch
 version for CPU tensors and launches the kernel for CUDA tensors.
@@ -38,7 +43,7 @@ from ..intersect import safe_inv_dir, slab
 from . import cuda_lib
 from .cluster_kernels import (
     CLUSTER_TRIS, LIST_CAP, STAGE_ROWS, check_clusters, count_tests, first_hits, keep_closest,
-    live_rays, row_hits, warp_lists, warp_steps,
+    live_rays, row_hits, tie_bound, warp_lists, warp_steps,
 )
 from .cluster_kernels import TILE_RAYS, clusterize_bvh, num_clusters  # noqa: F401
 
@@ -88,23 +93,23 @@ def scene_tcap(clus_rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor) -> tor
     return torch.where(miss, 0.0, (tf.double() * _CAP_SCALE + _CAP_OFFSET).float())
 
 
-def _walk(clus_rows, sub_rows, geom_rows, o, d, best, walking, work, on_subblock, list_cap):
-    """The warp walk shared by both plain versions. ``best`` [R] is the
-    slab tests' bound, updated in place by ``on_subblock(ids, first)``
-    (the rays that entered a sub-block, and its first row per ray), which
-    also clears ``walking`` [R] (the live rays) for rays that leave the
-    walk. ``work`` [R, 2] or [R, 3] (optional) counts box tests and
-    triangle tests (``count_tests``)."""
+def _walk(clus_rows, sub_rows, geom_rows, o, d, bound, walking, work, on_subblock, list_cap):
+    """The warp walk shared by both plain versions. ``bound()`` [R] is the
+    slab tests' bound, read afresh at each test: ``on_subblock(ids,
+    first)`` (the rays that entered a sub-block, and its first row per
+    ray) lowers it, and clears ``walking`` [R] (the live rays) for rays
+    that leave the walk. ``work`` [R, 2] or [R, 3] (optional) counts box
+    tests and triangle tests (``count_tests``)."""
     inv = safe_inv_dir(d)
     n_rows = geom_rows.shape[0]
-    ids, keys, count = warp_lists(clus_rows, o, d, best)
+    ids, keys, count = warp_lists(clus_rows, o, d, bound())
     if work is not None:
         work[walking, 0] += clus_rows.shape[0]
-    for rays, k in warp_steps(best, walking, ids, keys, count, list_cap):
+    for rays, k in warp_steps(bound, walking, ids, keys, count, list_cap):
         if work is not None:
             work[rays, 0] += 1
         box = clus_rows[k]
-        inside = slab(box[:, 0:3], box[:, 3:6], o[rays], inv[rays], best[rays])[0]
+        inside = slab(box[:, 0:3], box[:, 3:6], o[rays], inv[rays], bound()[rays])[0]
         rays, k = rays[inside], k[inside]
         for s in range(SUB):
             keep = walking[rays]
@@ -114,7 +119,7 @@ def _walk(clus_rows, sub_rows, geom_rows, o, d, best, walking, work, on_subblock
             if work is not None:
                 work[rays, 0] += 1
             sub = sub_rows[k * SUB + s]
-            inside = slab(sub[:, 0:3], sub[:, 3:6], o[rays], inv[rays], best[rays])[0]
+            inside = slab(sub[:, 0:3], sub[:, 3:6], o[rays], inv[rays], bound()[rays])[0]
             first = k[inside] * CLUSTER_TRIS + s * SUB_TRIS
             some = first < n_rows
             if bool(some.any()):
@@ -141,8 +146,8 @@ def stream_trace_surface_plain(clus_rows, sub_rows, geom_rows, o, d, tcap, work=
         count_tests(work, ids, hits[3], hits[4])
         keep_closest(hits, ids, first, best, btri, bu, bv)
 
-    _walk(clus_rows, sub_rows, geom_rows, of, df, best, live_rays(df, best), work, on_subblock,
-          list_cap)
+    _walk(clus_rows, sub_rows, geom_rows, of, df, lambda: tie_bound(best, btri),
+          live_rays(df, best), work, on_subblock, list_cap)
     return best.reshape(batch), btri.reshape(batch), bu.reshape(batch), bv.reshape(batch)
 
 
@@ -163,7 +168,8 @@ def stream_trace_anyhit_plain(clus_rows, sub_rows, geom_rows, o, d, t_max, work=
         first_hits(row_hits(geom_rows, of[ids], df[ids], first, geom_rows.shape[0]), ids, tm,
                    occ, walking, work)
 
-    _walk(clus_rows, sub_rows, geom_rows, of, df, tm, walking, work, on_subblock, list_cap)
+    _walk(clus_rows, sub_rows, geom_rows, of, df, lambda: tm, walking, work, on_subblock,
+          list_cap)
     return occ.reshape(batch)
 
 

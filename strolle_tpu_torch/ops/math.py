@@ -38,6 +38,10 @@ def length(a: torch.Tensor) -> torch.Tensor:
     return torch.where(pos, torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
 
 
+def length_squared(a: torch.Tensor) -> torch.Tensor:
+    return dot(a, a)
+
+
 def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: the zero vector stays near zero instead of NaN."""
     return a * torch.rsqrt(torch.clamp(dotk(a, a), min=eps))
@@ -87,6 +91,13 @@ def perc_luma(rgb: torch.Tensor) -> torch.Tensor:
     lum = luma(rgb)
     pos = lum > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, lum, 1.0)), 0.0)
+
+
+def with_luma(rgb: torch.Tensor, new_luma: torch.Tensor) -> torch.Tensor:
+    """``rgb`` scaled to luma ``new_luma``; black stays black."""
+    old = luma(rgb)
+    scale = torch.where(old > 0.0, new_luma / torch.clamp(old, min=1e-20), 0.0)
+    return rgb * scale[..., None]
 
 
 def octahedral_encode(n: torch.Tensor) -> torch.Tensor:

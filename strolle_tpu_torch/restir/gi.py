@@ -171,6 +171,13 @@ def jacobian_apply(od, oc, v2_point, v2_normal, exists, new_hit_point):
     return torch.where(exists, j, 1.0)
 
 
+def sample_jacobian(res: GiReservoirs, new_hit_point):
+    """The reconnection shift's Jacobian of each reservoir's sample seen
+    from ``new_hit_point`` (1 where no sample exists)."""
+    od, oc = jacobian_old_parts(res.v1_point, res.v2_point, res.v2_normal)
+    return jacobian_apply(od, oc, res.v2_point, res.v2_normal, res.exists, new_hit_point)
+
+
 # ---------------------------------------------------------------------------
 # checkerboard coverage
 # ---------------------------------------------------------------------------

@@ -49,6 +49,19 @@ def test_cluster_host_code_matches_jax(soup):
         assert torch.equal(got[k], want[k]), k
 
 
+def test_clusters_from_leaf_boxes_match_jax():
+    """Without positions the clusters are the union of the BVH's leaf
+    boxes per bin, as the JAX package's: equal rows, each box holding its
+    tight box."""
+    js, scene, _, _ = soup_scenes()
+    n = js.geometry.num_triangles
+    got = ck.clusterize_bvh(scene.bvh, n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jck.clusterize_bvh(js.bvh, n)))
+    tight = ck.clusterize_bvh(scene.bvh, n, scene.geometry.positions)
+    assert (got[:, 0:3] <= tight[:, 0:3]).all() and (got[:, 3:6] >= tight[:, 3:6]).all()
+    assert torch.equal(got[:, 6:], tight[:, 6:])
+
+
 @pytest.mark.parametrize("rays", ["around", "inside"])
 def test_closest_plain_matches_jax(soup, rays):
     jclus, rows, clus, trows = soup
@@ -132,7 +145,7 @@ def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
         ck.cluster_trace_surface(too_many, trows, o, d)
     with pytest.raises(TypeError):
         ck.cluster_trace_surface(clus.double(), trows, o, d)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="positions or a BVH"):
         ck.clusterize_bvh(None, 10)
 
 

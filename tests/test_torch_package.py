@@ -5,6 +5,7 @@ through kernels A and B as the JAX package traces them."""
 
 import ast
 import dataclasses
+import functools
 from pathlib import Path
 
 import jax
@@ -164,3 +165,101 @@ def test_big_scene_without_bvh_matches_jax():
         assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
     with pytest.raises(ValueError, match="megakernel"):
         trace_sample(big, cam, 1, depth=1, include_sky=False, use_megakernel=True)
+
+
+#: JAX names whose port goes by another name or lives in another module:
+#: (JAX module, name) -> (port module, name). The kernel entry points drop
+#: their ``_pallas``; the stream kernels' per-tile lists are built per warp.
+RENAMED = {
+    ("ops/pallas/trace_kernels.py", "trace_closest_brute_pallas"):
+        ("ops/kernels/trace_kernels.py", "trace_closest_brute"),
+    ("ops/pallas/trace_kernels.py", "trace_anyhit_brute_pallas"):
+        ("ops/kernels/trace_kernels.py", "trace_anyhit_brute"),
+    ("ops/pallas/trace_kernels.py", "trace_surface_pallas"):
+        ("ops/kernels/trace_kernels.py", "trace_surface"),
+    ("ops/pallas/stream_kernels.py", "stream_trace_surface_pallas"):
+        ("ops/kernels/stream_kernels.py", "stream_trace_surface"),
+    ("ops/pallas/stream_kernels.py", "stream_trace_anyhit_pallas"):
+        ("ops/kernels/stream_kernels.py", "stream_trace_anyhit"),
+    ("ops/pallas/stream_kernels.py", "cull_lists"): ("ops/kernels/stream_kernels.py", "warp_lists"),
+    ("ops/pallas/cluster_kernels.py", "cluster_trace_surface_pallas"):
+        ("ops/kernels/cluster_kernels.py", "cluster_trace_surface"),
+    ("ops/pallas/cluster_kernels.py", "cluster_trace_anyhit_pallas"):
+        ("ops/kernels/cluster_kernels.py", "cluster_trace_anyhit"),
+    ("ops/pallas/bvh_kernels.py", "bvh_trace_surface_pallas"):
+        ("ops/kernels/bvh_kernels.py", "bvh_trace_surface"),
+    ("ops/pallas/bvh_kernels.py", "bvh_trace_anyhit_pallas"):
+        ("ops/kernels/bvh_kernels.py", "bvh_trace_anyhit"),
+    ("ops/pallas/probe_kernels.py", "probe_spatial_pallas"):
+        ("ops/kernels/probe_kernels.py", "probe_spatial"),
+    # the DTensor placements live beside the frame split that takes them
+    ("parallel/distributed.py", "replicated"): ("parallel/frame_sharding.py", "replicated"),
+    ("parallel/distributed.py", "row_sharding"): ("parallel/frame_sharding.py", "row_sharding"),
+}
+
+#: JAX names with no port, and why none is needed.
+JAX_ONLY = {
+    # registers frozen dataclasses as JAX pytrees; the port's dataclasses
+    # are walked by utils/pytree.py's tree_map instead
+    ("utils/pytree.py", "pytree_dataclass"),
+    ("utils/pytree.py", "static"),
+    # the TPU kernels' DMA layout (four 32-float records to a 128-lane
+    # row); the CUDA kernels read the [T', 28] rows with 16-byte loads
+    ("ops/pallas/stream_kernels.py", "pack4_rows"),
+}
+
+
+def _port_module(rel: str) -> str:
+    """The port module that holds a JAX module's names."""
+    if rel == "native/__init__.py":
+        return "native.py"
+    return rel.replace("ops/pallas/", "ops/kernels/", 1)
+
+
+def _public_names(path: Path) -> set:
+    """Public top-level functions and classes."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+@functools.cache
+def _bound_names(path: Path) -> set:
+    """Every name a module binds at its top level: definitions,
+    assignments and imports (a name re-exported from another port module
+    is there)."""
+    out = set()
+    for n in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(n.name)
+        elif isinstance(n, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in n.names)
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+            targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+            out.update(t.id for t in targets if isinstance(t, ast.Name))
+    return out
+
+
+def test_every_public_jax_name_has_a_port():
+    """Every public top-level function or class of every module of the JAX
+    package is bound in the matching port module (``ops/pallas/`` maps to
+    ``ops/kernels/``, ``native/__init__.py`` to ``native.py``), under the
+    same name or as ``RENAMED`` says, unless ``JAX_ONLY`` lists it; both
+    tables name only what is there."""
+    jax_root, port_root = ROOT / "strolle_tpu", ROOT / "strolle_tpu_torch"
+    missing, seen = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        for name in sorted(_public_names(path)):
+            seen.add((rel, name))
+            if (rel, name) in JAX_ONLY:
+                continue
+            mod, port_name = RENAMED.get((rel, name), (_port_module(rel), name))
+            port = port_root / mod
+            if not port.exists() or port_name not in _bound_names(port):
+                missing.append(f"{rel}::{name} -> {mod}::{port_name}")
+    assert not missing, missing
+    assert set(RENAMED) | JAX_ONLY <= seen
+    for rel, name in JAX_ONLY:
+        assert name not in _bound_names(port_root / _port_module(rel)), (rel, name)

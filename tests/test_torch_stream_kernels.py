@@ -5,17 +5,20 @@ CLUSTER_TRIS*3+57 triangles (four clusters, the last one ragged); the
 warps' front-to-back walk against the index-order walk (a list cap of
 0), its tie rule and its stop."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_arrays import coherent_rays, tie_scene
+from torch_port_arrays import coherent_rays, tie_scene, tie_scene_on_entry_face
 
 from strolle_tpu.ops.pallas import stream_kernels as jsk
 from strolle_tpu.ops.pallas.cluster_kernels import CLUSTER_TRIS, clusterize_bvh
 from strolle_tpu.ops.trace import trace_anyhit_brute, trace_closest_brute
 from strolle_tpu_torch.ops.intersect import ray_triangle_edges, safe_inv_dir, slab
+from strolle_tpu_torch.ops.kernels import cluster_kernels as ck
 from strolle_tpu_torch.ops.kernels import cuda_lib
 from strolle_tpu_torch.ops.kernels import stream_kernels as sk
 from tests.test_bvh_kernels import _packed, _rays, _soup_scene
@@ -149,7 +152,7 @@ def test_kernel_paths_take_only_cuda_tensors(soup, monkeypatch):
         sk.stream_trace_surface(torch.zeros(4, 6), trows, o, d)
     with pytest.raises(ValueError, match="clusters"):
         sk.stream_trace_surface(clus[:2], trows, o, d)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="positions or a BVH"):
         sk.clusterize_bvh(None, 10)
 
 
@@ -198,6 +201,41 @@ def test_exact_tie_goes_to_the_lowest_row_in_either_order():
     for cap in (sk.LIST_CAP, 0):
         (occ,), _ = _plain_pair(clus, rows, o, d, cap, t_max=np.inf)
         assert occ.all()
+
+
+def test_exact_tie_on_the_entry_face_goes_to_the_lowest_row(monkeypatch):
+    """The lower copy lies on the face of its cluster's box that the rays
+    enter by, and that cluster is walked after the higher copy's: once a
+    ray has a hit its box tests take best t times TIE_REACH, as kernel 8's
+    do, so row 5 wins on every ray, as in index order. Without the reach
+    the slab's t_near rounds past the hit's t on some rays, which then
+    keep row 263."""
+    clus, rows, o, d = tie_scene_on_entry_face()
+    assert clus[0, 0] == rows[5, 0]
+    ids, _, count = sk.warp_lists(clus, o, d, sk.scene_tcap(clus, o, d))
+    assert (count == 2).all() and (ids[:, 0] == 1).all()
+    for cap in (sk.LIST_CAP, 0):
+        (t, tri, _, _), _ = _plain_pair(clus, rows, o, d, cap)
+        assert (tri == 5).all(), cap
+    monkeypatch.setattr(ck, "TIE_REACH", 1.0)
+    (t, tri, _, _), _ = _plain_pair(clus, rows, o, d, sk.LIST_CAP)
+    assert (tri == 263).any() and (tri >= 0).all()
+
+
+@pytest.mark.parametrize("scene", [tie_scene, tie_scene_on_entry_face])
+def test_exact_tie_picks_what_the_jax_brute_route_picks(scene):
+    """On both tie scenes kernel 5's plain version picks, ray by ray, the
+    triangle that the JAX brute route picks (the lowest row). The JAX
+    stream kernel keeps the first-walked copy (row 263) instead."""
+    clus, rows, o, d = scene()
+    v0 = rows[:, 0:3]
+    pos = torch.stack([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]], dim=1)
+    # the brute route reads only the scene's triangle positions
+    js = types.SimpleNamespace(geometry=types.SimpleNamespace(positions=jnp.asarray(pos.numpy())))
+    want = np.asarray(trace_closest_brute(js, jnp.asarray(o.numpy()), jnp.asarray(d.numpy())).tri)
+    got = sk.stream_trace_surface(clus, rows, o, d)["tri"].numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got == 5).all()
 
 
 def test_warp_lists_sorted_and_stop_skips_no_closer_hit(soup):
